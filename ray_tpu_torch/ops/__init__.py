@@ -1,0 +1,2 @@
+"""Kernels written by hand for Hopper, each beside its plain PyTorch
+version. Sources live in `csrc/`; `_build` compiles them at first use."""
