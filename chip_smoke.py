@@ -6,29 +6,42 @@ Run from the root of a checkout:
     python3 chip_smoke.py
 
 It builds every kernel under ray_tpu_torch/ops/csrc/ with nvcc, holds each
-against its plain PyTorch version at the shapes of the main path, and
-drives the main path: ResNet-50 training through
-`ray_tpu_torch.train.Trainer` at batch 256, 224², bf16, with the
-batchnorm backward sums in the hand-written kernel. Each phase prints
-one JSON line:
+against its plain PyTorch version at the shapes of the main paths, and
+drives the two main paths through `ray_tpu_torch.train.Trainer`:
+ResNet-50 training at batch 256, 224², bf16, with the batchnorm backward
+sums in the hand-written kernel; and GPT-2 124M training at batch 12 x
+1024 tokens, bf16, with every layernorm and flash-attention forward in the
+hand-written kernels. Each phase prints one JSON line:
 
 1. device: nvidia-smi's name and power limit, torch, CUDA and nvcc.
 2. build: nvcc of every source, one process each, all started together.
-3. kernels: bn_bwd_sums against bn_bwd_sums_plain at each of ResNet-50's
-   batchnorm shapes (taken from a forward pass of the model) and one
-   ragged shape: error, bit-identity of two runs, and times (CUDA events,
-   median of 25, L2 flushed before each) beside the bound and the
-   library call that computes the same sums (timed as a yardstick only).
+3. kernels: each kernel against its plain version: error, bit-identity of
+   two runs, and times (CUDA events, median of 25, L2 flushed before
+   each) beside the bound and the library call that computes the same
+   function (timed as a yardstick only, never called by the port).
+   bn_bwd_sums at each of ResNet-50's batchnorm shapes (taken from a
+   forward pass of the model) and one ragged shape; layernorm and rmsnorm
+   at GPT-2's [12288, 768] and a ragged [1000, 100]; flash attention at
+   GPT-2's shape (causal), a BERT-base shape (not causal), one
+   single-block shape and two float32 shapes (head dims 64 and 16).
 4. resnet50_step: one step of bn_mode="kernel" against "plain" from the
    same weights and batch: float32 (TF32 off) at batch 32, and bf16 at
    batch 64.
-5. train: the main path, with the raw-loop control and the launch count.
+5. train: the ResNet-50 main path, with the raw-loop control and the
+   launch count.
+6. gpt2_step: one loss and gradient of ops_mode="kernel" against "plain"
+   from the same weights and tokens: float32 (TF32 off) at batch 2 x 1024,
+   and bf16 at batch 12 x 1024, each kernel call also held against its
+   plain version on its own inputs.
+7. train_gpt2: the GPT-2 main path, with the raw-loop control, tokens/s
+   and the launches per step.
 Then the card's name and power limit, the kernels summary line and, last,
 {"ok": true, "device": {...}}. A failed phase raises: the script exits
 non-zero and prints no result. Without CUDA it exits 2 at once.
 """
 
 import collections
+import dataclasses
 import json
 import math
 import statistics
@@ -42,6 +55,7 @@ import torch
 # 700 W limit): memory bytes/s, float32 operations/s outside the tensor
 # cores. The card's name and limit print beside every result.
 PEAK_BYTES_S, PEAK_F32_OPS_S = 3.35e12, 67.0e12
+PEAK_BF16_OPS_S = 989.0e12  # dense, tensor cores
 
 BATCH, HW, STEPS, WARMUP = 256, 224, 30, 3
 # kernel vs plain sums: |kernel − plain| per channel over Σ|term| of that
@@ -69,9 +83,57 @@ STEP_TOL = {"float32": {"loss": 1e-5, "state": 1e-4, "grad": 1e-3,
                          "layer_sums": SUMS_TOL}}
 STEP_BATCH = {"float32": 32, "bfloat16": 64}
 
+# GPT-2 124M main path: nanoGPT's config/train_gpt2.py micro-batch
+# (batch_size = 12, block_size = 1024) and its AdamW settings.
+GPT_BATCH, GPT_SEQ = 12, 1024
+GPT_STEP_BATCH = {"float32": 2, "bfloat16": 12}
+# layernorm/rmsnorm kernel vs plain, in units of the allowed difference
+# (pass at <= 1): bf16, one bf16 ulp of the plain value plus 1e-6 of the
+# largest |value| (both cast one f32 value at the store, and the f32
+# values differ by the order of the row sums, which can move a value
+# across a bf16 rounding boundary; near 0, where y·w + b cancels, that
+# f32 difference exceeds the element's own ulp); f32, 1e-5 of the
+# largest |value|.
+NORM_TOL = 1.0
+# flash kernel vs plain, per element of o, in units of the allowed
+# difference (pass at <= 1), scaled by the largest |value| of the
+# element's row (one query of one head, D values), never by the whole
+# output's. bf16: one bf16 ulp of the plain value plus 2^-8 of its row's
+# largest |value|. Both cast the f32 o / l once at the store, which
+# differs by at most one ulp where the two f32 values straddle a rounding
+# boundary; and both cast p to bf16 before p·V, so where the f32 scores
+# (tensor-core sums vs f32 matmuls, in another order) move one p_j across
+# a bf16 boundary, o moves by 2^-8·(p_j / l)·|v_j| at most, which the
+# row term holds. f32: 1e-5 of the row's largest |value|, the same f32
+# arithmetic in another order.
+FLASH_TOL = 1.0
+# kernel vs plain GPT-2 step, relative L2 error of the loss, of each
+# gradient ("grad") and of all gradients together ("grads_all"); every
+# layernorm and flash call of the kernel step is also held against its
+# plain version on its own inputs ("layers", in units of the allowed
+# difference of NORM_TOL and FLASH_TOL: pass at <= 1).
+# float32, TF32 off: the same f32 math in another order.
+# bfloat16: the kernels round like the plain versions but differ by a
+# bf16 ulp where their f32 sums straddle a rounding boundary; twelve
+# blocks at random init carry such differences into every gradient.
+GPT_STEP_TOL = {"float32": {"loss": 1e-5, "grad": 1e-3, "grads_all": 1e-4,
+                            "layers": 1.0},
+                "bfloat16": {"loss": 1e-2, "grads_all": 5e-2,
+                             "layers": 1.0}}
+
 
 def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def flush_buffer(dev):
+    """512 MB to overwrite before each timed launch: ten times the 50 MB
+    L2. Its memset (about 0.17 ms at the memory rate) also keeps the card
+    busy while the host runs a kernel's wrapper up to the launch: were the
+    memset shorter than that host time, the card would idle between the
+    start event and the kernel, and a slow host would add to a short
+    kernel's time."""
+    return torch.empty(128 << 20, device=dev)
 
 
 def time_ms(fn, iters=25, warmup=3, flush=None):
@@ -112,8 +174,9 @@ def phase_build():
 
     t0 = time.perf_counter()
     logs = _build.build_all()
+    keep = ("Function properties for", "registers", "spill")
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if any(k in ln for k in keep)]
              for name, log in logs.items()}
     emit("build", seconds=time.perf_counter() - t0, sources=sorted(logs),
          build_dir=str(_build.BUILD_DIR), ptxas=ptxas)
@@ -166,7 +229,7 @@ def phase_kernels(dev):
     bytes_s, flops_s = PEAK_BYTES_S, PEAK_F32_OPS_S
     counts = collections.Counter(resnet50_bn_shapes(dev))
     ragged = (100003, 99)  # M and C multiples of neither 8 nor 32
-    flush = torch.empty(32 << 20, device=dev)  # 128 MB > 50 MB of L2
+    flush = flush_buffer(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
     for (m, c), count in sorted(counts.items()) + [(ragged, 0)]:
@@ -216,6 +279,161 @@ def phase_kernels(dev):
             "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
                                         for r in rows) else "operations"),
             **per_step}
+
+
+def _bf16_ulp(t):
+    """One bf16 ulp at each value of t (7 stored mantissa bits)."""
+    mag = t.double().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def norm_err(got, want):
+    """|kernel − plain| in units of the allowed difference (NORM_TOL)."""
+    diff = (got.double() - want.double()).abs()
+    scale = float(want.double().abs().max())
+    if want.dtype == torch.bfloat16:
+        return float((diff / (_bf16_ulp(want) + 1e-6 * scale)).max())
+    return float(diff.max()) / (1e-5 * scale)
+
+
+def flash_err(got, want):
+    """|kernel − plain| in units of the allowed difference (FLASH_TOL);
+    got and want [B, T, H, D]."""
+    diff = (got.double() - want.double()).abs()
+    row = want.double().abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    if want.dtype == torch.bfloat16:
+        return float((diff / (_bf16_ulp(want) + 2.0 ** -8 * row)).max())
+    return float((diff / (1e-5 * row)).max())
+
+
+def _bound(n_bytes, n_ops, ops_per_s):
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / ops_per_s
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _kernel_row(fwd, plain, lib, err_fn, tol, n_bytes, n_ops, ops_per_s,
+                flush, **shape):
+    """Holds fwd() against plain() (error, bit-identity of two runs) and
+    times fwd, plain and the library call lib; raises past tol."""
+    got, again, want = fwd(), fwd(), plain()
+    err, identical = err_fn(got, want), torch.equal(got, again)
+    if err > tol or not identical:
+        raise RuntimeError(f"kernel at {shape}: error {err} (tol {tol}), "
+                           f"bit-identical repeat {identical}")
+    lib_out = lib()
+    lib_diff = float((lib_out.float() - want.float()).abs().max())
+    bound_ms, bound_by = _bound(n_bytes, n_ops, ops_per_s)
+    return {**shape, "err": err, "tol": tol, "bit_identical": identical,
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "ms": time_ms(fwd, flush=flush),
+            "plain_ms": time_ms(plain, flush=flush),
+            "library_ms": time_ms(lib, flush=flush),
+            "library_max_abs_diff": lib_diff, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+# (N, D, dtype, launches per step on the GPT-2 main path for layernorm);
+# rmsnorm is on no model's path.
+NORM_SHAPES = (((12288, 768), torch.bfloat16, 49),
+               ((1000, 100), torch.bfloat16, 0),
+               ((1000, 100), torch.float32, 0))
+# (B, T, H, D, causal, dtype, launches per step on the GPT-2 main path)
+FLASH_SHAPES = ((12, 1024, 12, 64, True, torch.bfloat16, 24),   # GPT-2
+                (8, 512, 12, 64, False, torch.bfloat16, 0),     # BERT-base
+                (4, 128, 12, 64, True, torch.bfloat16, 0),      # one block
+                (2, 256, 12, 64, True, torch.float32, 0),       # float32
+                (2, 128, 4, 16, True, torch.float32, 0))        # TINY's
+
+
+def _norm_kernels(dev, flush):
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import layernorm as ln
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = {}
+    for kind in ("layernorm", "rmsnorm"):
+        rows = []
+        for (n, d), dtype, count in NORM_SHAPES:
+            x = (torch.randn((n, d), generator=gen, device=dev) * 2
+                 + 0.5).to(dtype)
+            w = (torch.randn(d, generator=gen, device=dev) + 1).to(dtype)
+            b = torch.randn(d, generator=gen, device=dev).to(dtype)
+            elt = x.element_size()
+            if kind == "layernorm":
+                fns = (lambda: ln.layernorm_fwd(x, w, b),
+                       lambda: ln.layernorm_plain(x, w, b),
+                       lambda: F.layer_norm(x, (d,), w, b, 1e-5))
+                n_bytes, n_ops = 2 * n * d * elt + 2 * d * elt, 8 * n * d
+            else:
+                count = 0
+                fns = (lambda: ln.rmsnorm_fwd(x, w),
+                       lambda: ln.rmsnorm_plain(x, w),
+                       lambda: F.rms_norm(x, (d,), w, 1e-6))
+                n_bytes, n_ops = 2 * n * d * elt + d * elt, 5 * n * d
+            rows.append({"count": count, **_kernel_row(
+                *fns, norm_err, NORM_TOL, n_bytes, n_ops, PEAK_F32_OPS_S,
+                flush, N=n, D=d, dtype=str(dtype))})
+            del x, w, b
+        out[kind] = rows
+    return out
+
+
+def _flash_kernels(dev, flush):
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import attention as att
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = []
+    for b, t, h, d, causal, dtype, count in FLASH_SHAPES:
+        # q, k, v as the model hands them over: views into one qkv
+        qkv = torch.randn((b, t, 3 * h * d), generator=gen,
+                          device=dev).to(dtype)
+        q, k, v = (z.view(b, t, h, d) for z in qkv.split(h * d, dim=-1))
+        qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+        scale = d ** -0.5
+        pairs = t * (t + 1) // 2 if causal else t * t
+        rows.append({"count": count, **_kernel_row(
+            lambda: att.flash_attention_fwd(q, k, v, causal, scale, 128,
+                                            128),
+            lambda: att.flash_attention_plain(q, k, v, causal, scale, 128,
+                                              128),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal).transpose(1, 2),
+            flash_err, FLASH_TOL, 4 * b * t * h * d * q.element_size(),
+            4 * d * pairs * b * h,
+            PEAK_BF16_OPS_S if dtype == torch.bfloat16 else PEAK_F32_OPS_S,
+            flush, B=b, T=t, H=h, D=d, causal=causal, dtype=str(dtype))})
+        del qkv, q, k, v, qt, kt, vt
+    return rows
+
+
+def _summary(rows, basis):
+    """The summary fields of one kernel: max_abs_err over its shapes, and
+    ms, plain_ms, bound_ms, library_ms on `basis` ("step": summed over the
+    launches of one GPT-2 step; "launch": one launch at the first shape)."""
+    main = rows[0]
+    k = main["count"] if basis == "step" else 1
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows),
+            "bound_by": main["bound_by"],
+            **{key: main[key] * k for key in ("ms", "plain_ms", "bound_ms",
+                                              "library_ms")}}
+
+
+def phase_transformer_kernels(dev):
+    flush = flush_buffer(dev)
+    norms = _norm_kernels(dev, flush)
+    flash = _flash_kernels(dev, flush)
+    for kind, tol in (("layernorm", NORM_TOL), ("rmsnorm", NORM_TOL)):
+        emit("kernels", kernel=kind, tol=tol, shapes=norms[kind])
+    emit("kernels", kernel="flash_attn_fwd", tol=FLASH_TOL, shapes=flash)
+    del flush
+    torch.cuda.empty_cache()
+    return {"layernorm": _summary(norms["layernorm"], "step"),
+            "rmsnorm": _summary(norms["rmsnorm"], "launch"),
+            "flash_attn_fwd": _summary(flash, "step")}
 
 
 def _rel_l2(a, b):
@@ -410,6 +628,221 @@ def phase_train(dev):
     return launches
 
 
+def gpt2_config(dtype=torch.bfloat16, ops_mode="kernel"):
+    from ray_tpu_torch.models import transformer
+
+    return dataclasses.replace(transformer.GPT2_SMALL, dtype=dtype,
+                               ops_mode=ops_mode)
+
+
+def gpt2_launches_per_step(cfg):
+    """(layernorm, flash) launches of one training step: two layernorms a
+    block and the final one, one attention a block, and the block's
+    forward again in the backward under remat."""
+    again = cfg.n_layers if cfg.remat else 0
+    return 2 * (cfg.n_layers + again) + 1, cfg.n_layers + again
+
+
+def _gpt_tokens(dev, batch, cfg, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq),
+                         generator=gen, device=dev)
+
+
+def _counts():
+    from ray_tpu_torch.ops import attention as att
+    from ray_tpu_torch.ops import layernorm as ln
+
+    return {"layernorm": ln.LAYERNORM_LAUNCHES,
+            "rmsnorm": ln.RMSNORM_LAUNCHES, "flash_attn_fwd": att.LAUNCHES,
+            "dense_routes": att.DENSE_ROUTES}
+
+
+def _zero_counts():
+    from ray_tpu_torch.ops import attention as att
+    from ray_tpu_torch.ops import layernorm as ln
+
+    ln.LAYERNORM_LAUNCHES = ln.RMSNORM_LAUNCHES = 0
+    att.LAUNCHES = att.DENSE_ROUTES = 0
+
+
+def _gpt_one_step(dev, cfg, tokens, layer_errs=None):
+    """loss and gradients of one GPT-2 step. With layer_errs (a dict of
+    lists), the model runs an Ops that holds every layernorm and flash
+    kernel call against its plain version on the same inputs, errors
+    appended in units of its tolerance."""
+    from ray_tpu_torch.models import transformer
+
+    kernel, plain = transformer.OPS["kernel"], transformer.OPS["plain"]
+
+    def checked_ln(*args):
+        got = kernel.layernorm(*args)
+        layer_errs["layernorm"].append(
+            norm_err(got, plain.layernorm(*args)) / NORM_TOL)
+        return got
+
+    def checked_flash(*args):
+        got = kernel.flash_attention(*args)
+        layer_errs["flash_attn_fwd"].append(
+            flash_err(got, plain.flash_attention(*args)) / FLASH_TOL)
+        return got
+
+    if layer_errs is not None:
+        cfg = dataclasses.replace(
+            cfg, ops_mode=transformer.Ops(checked_ln, checked_flash))
+    model = transformer.GPT(cfg, seed=0).to(dev)
+    loss = transformer.loss_fn(model, tokens)
+    loss.backward()
+    torch.cuda.synchronize()
+    grads = {n: p.grad.float() for n, p in model.named_parameters()}
+    return loss.item(), grads
+
+
+def phase_gpt2_step(dev):
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for key, batch in GPT_STEP_BATCH.items():
+        dtype, tol = getattr(torch, key), GPT_STEP_TOL[key]
+        cfg = gpt2_config(dtype, "kernel")
+        tokens = _gpt_tokens(dev, batch, cfg, seed=1)
+        layer_errs = {"layernorm": [], "flash_attn_fwd": []}
+        _zero_counts()
+        lk, gk = _gpt_one_step(dev, cfg, tokens, layer_errs)
+        launches = _counts()
+        lp, gp = _gpt_one_step(dev, gpt2_config(dtype, "plain"), tokens)
+        errs = {
+            "loss": abs(lk - lp) / abs(lp),
+            "grad": max(_rel_l2(gk[n], gp[n]) for n in gp),
+            "grads_all": _rel_l2(torch.cat([g.flatten() for g in gk.values()]),
+                                 torch.cat([g.flatten() for g in gp.values()])),
+            "layers": max(max(v) for v in layer_errs.values())}
+        worst = max(gp, key=lambda n: _rel_l2(gk[n], gp[n]))
+        n_ln, n_flash = gpt2_launches_per_step(cfg)
+        out[key] = {"batch": batch, "seq": cfg.max_seq, "loss_kernel": lk,
+                    "loss_plain": lp, "errors": errs, "tol": tol,
+                    "worst_grad": worst, "launches": launches,
+                    "layer_err_max": {k: max(v)
+                                      for k, v in layer_errs.items()}}
+        ok = (launches["layernorm"] == n_ln
+              and launches["flash_attn_fwd"] == n_flash
+              and launches["dense_routes"] == 0
+              and all(errs[k] <= tol[k] for k in tol))
+        if not ok:
+            emit("gpt2_step", failed=key, **out)
+            raise RuntimeError(f"gpt2_step {key}: {errs} vs {tol}, "
+                               f"launches {launches}, want {n_ln} "
+                               f"layernorm and {n_flash} flash")
+        del gk, gp, tokens
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    emit("gpt2_step", **out)
+
+
+def _adamw(params):
+    return torch.optim.AdamW(params, lr=6e-4, betas=(0.9, 0.95),
+                             weight_decay=0.1)
+
+
+def gpt2_operator_cls():
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.train import TrainingOperator
+
+    class Op(TrainingOperator):
+        def setup(self, config):
+            cfg = gpt2_config()
+            self.register(
+                model=transformer.GPT(cfg, seed=0), optimizer=_adamw,
+                loss_fn=transformer.loss_fn,
+                to_tree=lambda m: (transformer.params_to_jax(m), None),
+                from_tree=lambda m, params, _: transformer.load_jax_params(
+                    m, params))
+            self.register_data(train_loader=_Repeat(
+                _gpt_tokens(self.device, GPT_BATCH, cfg, seed=0),
+                config["steps"] + WARMUP))
+
+    return Op
+
+
+def _raw_tokens_s(dev):
+    """The same GPT-2 step without the framework."""
+    from ray_tpu_torch.models import transformer
+
+    cfg = gpt2_config()
+    model = transformer.GPT(cfg, seed=0).to(dev)
+    opt = _adamw(model.parameters())
+    tokens = _gpt_tokens(dev, GPT_BATCH, cfg, seed=0)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = transformer.loss_fn(model, tokens)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    for _ in range(WARMUP):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = torch.stack([step() for _ in range(STEPS)]).tolist()
+    dt = time.perf_counter() - t0
+    return GPT_BATCH * cfg.max_seq * STEPS / dt, losses
+
+
+def phase_train_gpt2(dev):
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.train import Trainer
+
+    cfg = gpt2_config()
+    trainer = Trainer(gpt2_operator_cls(), num_workers=1,
+                      config={"steps": STEPS},
+                      resources_per_worker={"GPU": 1})
+    n_params = transformer.num_params(trainer.workers[0].operator.model)
+    trainer.train(num_steps=WARMUP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    result = trainer.train(num_steps=STEPS)
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    trainer.shutdown()
+    del trainer
+    torch.cuda.empty_cache()
+    raw_tokens_s, raw_losses = _raw_tokens_s(dev)
+    tokens_s = result["samples_per_s"] * cfg.max_seq
+    n_ln, n_flash = gpt2_launches_per_step(cfg)
+    emit("train_gpt2", tokens_s=tokens_s, raw_tokens_s=raw_tokens_s,
+         framework_fraction=tokens_s / raw_tokens_s, batch=GPT_BATCH,
+         seq=cfg.max_seq, steps=STEPS, params=n_params,
+         last_train_loss=result["last_train_loss"],
+         train_loss=result["train_loss"], raw_last_loss=raw_losses[-1],
+         max_memory_allocated=peak,
+         launches_per_step={k: v / STEPS for k, v in launches.items()})
+    finite = all(math.isfinite(v) for v in (result["train_loss"],
+                                            result["last_train_loss"]))
+    if (launches["layernorm"] != n_ln * STEPS
+            or launches["flash_attn_fwd"] != n_flash * STEPS
+            or launches["dense_routes"] != 0 or not finite):
+        raise RuntimeError(f"train_gpt2: launches {launches} in {STEPS} "
+                           f"steps, want {n_ln} layernorm and {n_flash} "
+                           f"flash a step and no dense route; loss finite "
+                           f"{finite}")
+    return launches
+
+
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "bn_bwd_sums": ("ray_tpu_torch/ops/csrc/bn_bwd_sums.cu",
+                    "ray_tpu/ops/batchnorm.py:43"),
+    "layernorm": ("ray_tpu_torch/ops/csrc/layernorm.cu",
+                  "ray_tpu/ops/layernorm.py:18"),
+    "rmsnorm": ("ray_tpu_torch/ops/csrc/layernorm.cu",
+                "ray_tpu/ops/layernorm.py:26"),
+    "flash_attn_fwd": ("ray_tpu_torch/ops/csrc/flash_attn_fwd.cu",
+                       "ray_tpu/ops/attention.py:24"),
+}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -420,18 +853,20 @@ def main():
     dev = torch.device("cuda", 0)
     smi = phase_device()
     phase_build()
-    summary = phase_kernels(dev)
+    summary = {"bn_bwd_sums": phase_kernels(dev),
+               **phase_transformer_kernels(dev)}
     phase_resnet50_step(dev)
-    launches = phase_train(dev)
+    launches = {"bn_bwd_sums": phase_train(dev)}
+    phase_gpt2_step(dev)
+    launches.update(phase_train_gpt2(dev))
     print(smi)
     print(json.dumps({"kernels": [{
-        "name": "bn_bwd_sums", "route": "cuda",
-        "source": "ray_tpu_torch/ops/csrc/bn_bwd_sums.cu",
-        "replaces": "ray_tpu/ops/batchnorm.py:43",
-        "launches": launches, "max_abs_err": summary["max_abs_err"],
-        "ms": summary["ms"], "plain_ms": summary["plain_ms"],
-        "bound_ms": summary["bound_ms"], "bound_by": summary["bound_by"],
-        "library_ms": summary["library_ms"]}]}))
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches[name],
+        **{k: summary[name][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")}}
+        for name, (source, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,9 +6,11 @@ every kernel that `ray_tpu` wrote by hand in Pallas gets a kernel written
 by hand for sm_90a under `ops/csrc/`. Entry points run on CUDA unless the
 caller passes `device="cpu"`; with no CUDA device they raise.
 
-The port grows slice by slice (ROADMAP.md). This slice holds the ResNet
-training path: `models.resnet`, `train.TrainingOperator`, `train.Trainer`
-and the batchnorm-backward sums kernel in `ops.batchnorm`.
+The port grows slice by slice (ROADMAP.md). It holds two training paths
+through `train.Trainer` and `train.TrainingOperator`: `models.resnet`
+with the batchnorm-backward sums kernel in `ops.batchnorm`, and
+`models.transformer` (GPT) with the layernorm and flash-attention forward
+kernels in `ops.layernorm` and `ops.attention`.
 """
 
 __version__ = "0.1.0"

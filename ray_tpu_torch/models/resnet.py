@@ -259,18 +259,24 @@ def _tree_paths(tree, prefix=()):
             yield prefix + (k,)
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """An f32 numpy copy of t (never a view of a CPU tensor's memory)."""
+    return t.detach().to("cpu", torch.float32, copy=True).numpy()
+
+
 def params_to_jax(model: ResNet) -> tuple[dict, dict]:
     """(params, state) as the JAX package's nested dicts of f32 numpy
-    arrays; conv weights OIHW -> HWIO."""
+    arrays, copies that later steps leave as they are; conv weights
+    OIHW -> HWIO."""
     params: dict = {}
     state: dict = {}
     for name, p in model.named_parameters():
-        v = p.detach().float().cpu().numpy()
+        v = _host(p)
         if v.ndim == 4:
             v = np.ascontiguousarray(v.transpose(2, 3, 1, 0))
         _tree_set(params, name.split("."), v)
     for name, b in model.named_buffers():
-        _tree_set(state, name.split("."), b.detach().float().cpu().numpy())
+        _tree_set(state, name.split("."), _host(b))
     return params, state
 
 

@@ -60,13 +60,16 @@ class TrainingOperator:
                  optimizer: Callable[[Iterable], torch.optim.Optimizer],
                  loss_fn: Callable[[nn.Module, Any], torch.Tensor],
                  to_tree: Callable[[nn.Module], tuple],
-                 from_tree: Callable[[nn.Module, dict, dict], Any]):
+                 from_tree: Callable[[nn.Module, dict, dict], Any],
+                 eval_fn: Callable[[nn.Module, Any], dict] | None = None):
         """Register the model.
 
         model: an nn.Module; it moves to the operator's device. Mutable
             state (batchnorm statistics) lives in its buffers.
         optimizer: optimizer factory, called with model.parameters().
         loss_fn(model, batch) -> scalar loss tensor.
+        eval_fn(model, batch) -> metrics dict (values tensors or numbers);
+            defaults to {"val_loss": loss_fn(model, batch)}.
         to_tree(model) -> (params, model_state) and from_tree(model,
             params, model_state): the checkpoint layout of state_dict(),
             the JAX package's pytrees (for ResNet, `params_to_jax` and
@@ -76,6 +79,8 @@ class TrainingOperator:
         self.model = model.to(self.device).train()
         self.optimizer = optimizer(self.model.parameters())
         self._loss_fn = loss_fn
+        self._eval_fn = eval_fn or (
+            lambda model, batch: {"val_loss": loss_fn(model, batch)})
         self._to_tree = to_tree
         self._from_tree = from_tree
 
@@ -134,25 +139,31 @@ class TrainingOperator:
         }
 
     def validate(self, num_steps: int | None = None) -> dict:
-        """Mean loss over the validation loader, with the model in eval
-        mode: running statistics, and nothing in the model changes. (The
-        JAX operator's default evaluates its train-mode loss.)"""
+        """Mean of each eval_fn metric over the validation loader, as the
+        JAX operator: the model stays in train mode (batch statistics), runs
+        under no_grad, and every buffer the pass changes (batchnorm running
+        statistics) is put back afterwards, as the JAX operator discards its
+        new model state."""
         if self._val_loader is None:
             raise RuntimeError("no validation_loader registered")
-        losses, samples = [], 0
-        self.model.eval()
+        saved = {n: b.clone() for n, b in self.model.named_buffers()}
+        metrics, samples = [], 0
         try:
             with torch.no_grad():
                 for step, batch in enumerate(self._val_loader, 1):
-                    losses.append(self._loss_fn(self.model,
-                                                self._to_device(batch)))
+                    metrics.append(self._eval_fn(self.model,
+                                                 self._to_device(batch)))
                     samples += _batch_size(batch)
                     if num_steps is not None and step >= num_steps:
                         break
         finally:
-            self.model.train()
-        out = ({"val_loss": float(torch.stack(losses).mean())}
-               if losses else {})
+            with torch.no_grad():
+                for n, b in self.model.named_buffers():
+                    b.copy_(saved[n])
+        # to the host after the loop: the loop only enqueued work
+        host = [{k: float(v) for k, v in m.items()} for m in metrics]
+        out = {k: float(np.mean([m[k] for m in host]))
+               for k in (host[0] if host else {})}
         out["num_samples"] = samples
         return out
 

@@ -108,11 +108,14 @@ def runs():
     config = {"params": params, "state": state, "batches": batches[:STEPS]}
     jop = _jax_op_cls()(config, 0, 1)
     jax_epochs = [jop.train_epoch(num_steps=1) for _ in range(STEPS)]
+    jop.register_data(validation_loader=[batches[STEPS]])
+    jax_val = jop.validate()
     trainer = Trainer(PortOp, num_workers=1, config=config, device="cpu")
     port_epochs = [trainer.train(num_steps=1) for _ in range(STEPS)]
     return {"jax": {"epochs": jax_epochs, "state": jop.state_dict()},
             "port": {"epochs": port_epochs, "state": trainer.state_dict()},
-            "trainer": trainer, "config": config, "next": batches[STEPS]}
+            "trainer": trainer, "config": config, "next": batches[STEPS],
+            "jax_val": jax_val}
 
 
 @pytest.mark.parametrize("step", range(STEPS))
@@ -156,8 +159,12 @@ def test_state_dict_round_trip_resumes_identically(runs):
 
 
 def test_validate_uses_running_stats_and_changes_nothing(runs):
-    """validate() is the mean eval-mode loss; parameters and running
-    statistics stay as they were."""
+    """validate() is the mean train-mode loss (batch statistics, as the
+    JAX operator's default eval), computed without a gradient; parameters
+    and running statistics stay as they were. The name is kept from when
+    validate ran in eval mode on the running statistics: what it checks
+    now is that validate uses batch statistics and leaves the running
+    ones unchanged."""
     trainer = runs["trainer"]
     op = trainer.workers[0].operator
     images, labels = (torch.from_numpy(a) for a in runs["next"])
@@ -165,16 +172,53 @@ def test_validate_uses_running_stats_and_changes_nothing(runs):
                      validation_loader=[runs["next"], runs["next"]])
     before = trainer.state_dict()
     out = trainer.validate()
-    op.model.eval()
-    with torch.no_grad():
-        want = tres.loss_fn(op.model, images, labels).item()
-    op.model.train()
-    assert out["num_samples"] == 2 * BATCH
-    assert out["val_loss"] == pytest.approx(want, rel=1e-6)
+    assert op.model.training
     after = trainer.state_dict()
     for tree in ("params", "model_state"):
         a, b = _leaves(before[tree]), _leaves(after[tree])
         assert all(np.array_equal(a[k], b[k]) for k in a), tree
+    with torch.no_grad():
+        want = tres.loss_fn(op.model, images, labels).item()
+    tres.load_jax_params(op.model, before["params"], before["model_state"])
+    assert out["num_samples"] == 2 * BATCH
+    assert out["val_loss"] == pytest.approx(want, rel=1e-6)
+
+
+def test_validate_matches_jax_operator(runs):
+    """Trainer.validate against the JAX operator's validate on the same
+    batch after the same three steps (f32, rel 1e-4), and the running
+    statistics unchanged by it."""
+    trainer = Trainer(PortOp, config=runs["config"], device="cpu")
+    trainer.load_state_dict(runs["port"]["state"])  # after the three steps
+    op = trainer.workers[0].operator
+    op.register_data(validation_loader=[runs["next"]])
+    before = _leaves(trainer.state_dict()["model_state"])
+    got, want = trainer.validate(), runs["jax_val"]
+    assert got["num_samples"] == want["num_samples"] == BATCH
+    assert abs(got["val_loss"] - want["val_loss"]) <= (
+        TOL * abs(want["val_loss"])), (got, want)
+    after = _leaves(trainer.state_dict()["model_state"])
+    assert all(np.array_equal(before[k], after[k]) for k in before)
+
+
+def test_validate_takes_eval_fn():
+    """register(eval_fn=...) replaces the default metrics; each is
+    averaged over the loader."""
+    class Op(TrainingOperator):
+        def setup(self, config):
+            cfg = tres.ResNetConfig(dtype=torch.float32, **ARCH)
+            self.register(
+                model=tres.ResNet(cfg),
+                optimizer=lambda ps: torch.optim.SGD(ps, lr=0.1),
+                loss_fn=lambda model, b: tres.loss_fn(model, b[0], b[1]),
+                to_tree=tres.params_to_jax, from_tree=tres.load_jax_params,
+                eval_fn=lambda model, b: {"top": b[1].max()})
+            self.register_data(validation_loader=config["batches"])
+
+    batches = _data()[2][:2]
+    out = Trainer(Op, config={"batches": batches}, device="cpu").validate()
+    assert out == {"top": float(np.mean([b[1].max() for b in batches])),
+                   "num_samples": 2 * BATCH}
 
 
 def test_trainer_without_cuda_raises_instead_of_using_cpu(monkeypatch):
