@@ -7,11 +7,13 @@ Run from the root of a checkout:
 
 It builds every kernel under ray_tpu_torch/ops/csrc/ with nvcc, holds each
 against its plain PyTorch version at the shapes of the main paths, and
-drives the two main paths through `ray_tpu_torch.train.Trainer`:
+drives the three main paths through `ray_tpu_torch.train.Trainer`:
 ResNet-50 training at batch 256, 224², bf16, with the batchnorm backward
-sums in the hand-written kernel; and GPT-2 124M training at batch 12 x
-1024 tokens, bf16, with every layernorm and flash-attention forward in the
-hand-written kernels. Each phase prints one JSON line:
+sums in the hand-written kernel; GPT-2 124M training at batch 12 x 1024
+tokens, bf16, with every layernorm and flash-attention forward in the
+hand-written kernels; and the same GPT-2 data-parallel over two ranks
+that share the card, with the gradient collectives in the hand-written
+ring kernels. Each phase prints one JSON line:
 
 1. device: nvidia-smi's name and power limit, torch, CUDA and nvcc.
 2. build: nvcc of every source, one process each, all started together.
@@ -35,6 +37,21 @@ hand-written kernels. Each phase prints one JSON line:
    plain version on its own inputs.
 7. train_gpt2: the GPT-2 main path, with the raw-loop control, tokens/s
    and the launches per step.
+8. collectives (run after kernels): the ring collectives B5-B8 against
+   their plain versions, bit for bit, at w = 2, 3, 4 ranks on the card
+   (one stream each), at 4096 f32 (16 KB), 16 MB, a ragged 10,007 and
+   GPT-2's gradient bucket (w = 2); every op and dtype the kernels are
+   built for; 200 back-to-back calls of each kernel with a random skew a
+   rank; a withheld rank that must raise TimeoutError; times of one call
+   (every rank's kernel) beside the bound and one PyTorch call over the
+   ranks' tensors.
+9. train_gpt2_dp: GPT-2 124M through Trainer(num_workers=2,
+   collective_transport="pallas") at 12 x 1024 tokens a rank, exact,
+   quantize="int8" and sharded=True: tokens/s over both ranks, ring
+   launches a rank and step, the ring kernels' share of device time,
+   peak memory, losses; the ranks bit-identical, sharded bit-identical to
+   exact, int8 within a band of exact with its saved bytes counted, and a
+   float32 DP step against a single-worker step at the combined batch.
 Then the card's name and power limit, the kernels summary line and, last,
 {"ok": true, "device": {...}}. A failed phase raises: the script exits
 non-zero and prints no result. Without CUDA it exits 2 at once.
@@ -831,6 +848,513 @@ def phase_train_gpt2(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the fused ring collectives (B5-B8)
+# ---------------------------------------------------------------------------
+
+# GPT-2 124M's gradient bucket: the port's GPT(GPT2_SMALL) parameter count
+GPT2_NUMEL = 124402944
+# payloads in elements: the 16 KB latency class (ray_tpu/microbenchmark.py
+# :578-582), 16 MB (microbenchmark.py:502), a ragged size
+RING_SIZES = (4096, 4 << 20, 10007)
+RING_WORLDS = (2, 3, 4)
+STRESS_CALLS = 200
+RING_TIMEOUT_S = 2.0
+
+
+def _ring_cases(w):
+    """(kernel, combine, dtype, padded payload per rank, n) of one world
+    size: each payload padded as the collective layer pads it on the main
+    path (allreduce and allgather to _bucket(n); the reduce-scatter to the
+    sharded layout, padded_numel; the quantized ring to _qring_pad)."""
+    from ray_tpu_torch.collective.backends import device_backend as db
+    from ray_tpu_torch.train import sharding
+
+    sizes = RING_SIZES + ((GPT2_NUMEL,) if w == 2 else ())
+    cases = []
+    for n in sizes:
+        # the allreduce wrapper pads _bucket(n) to w chunks; so does this,
+        # for the plain version
+        b = w * -(-db._bucket(n) // w)
+        cases += [("allreduce", c, torch.float32, b, n)
+                  for c in ("add", "max", "min", "mul")]
+        if n != GPT2_NUMEL:
+            cases += [("allreduce", "add", torch.bfloat16, b, n),
+                      ("allreduce", "add", torch.int32, b, n)]
+        cases += [("reducescatter", "add", torch.float32,
+                   sharding.padded_numel(n, w), n),
+                  ("allgather", "add", torch.float32,
+                   db._bucket(sharding.padded_numel(n, w) // w), n)]
+        cases += [("quantized", c, torch.float32, db._qring_pad(n, w), n)
+                  for c in ("add", "max")]
+    return cases
+
+
+def _ring_inputs(combine, dtype, length, w, dev, gen):
+    if dtype == torch.int32:
+        return [torch.randint(-1000, 1000, (length,), generator=gen,
+                              device=dev, dtype=dtype) for _ in range(w)]
+    xs = [torch.randn(length, generator=gen, device=dev) for _ in range(w)]
+    if combine == "mul":
+        xs = [1 + 0.01 * x for x in xs]
+    return [x.to(dtype) for x in xs]
+
+
+_RING_OPS = {"add": "sum", "max": "max", "min": "min", "mul": "product"}
+
+
+def _ring_fns(ops, kind, combine):
+    """(kernel call of rank r, plain version over all ranks, one PyTorch
+    call that computes the same function: the yardstick, or None)."""
+    from ray_tpu_torch.collective.backends import pallas_backend as pb
+
+    op = _RING_OPS[combine]
+    if kind == "allreduce":
+        lib = {"add": lambda s: s.sum(0), "max": lambda s: s.amax(0),
+               "min": lambda s: s.amin(0), "mul": lambda s: s.prod(0)}[combine]
+        return (lambda r, x: ops.allreduce(r, x, op),
+                lambda xs: pb.allreduce_plain(xs, op),
+                lambda xs: lib(torch.stack(xs)))
+    if kind == "reducescatter":
+        return (ops.reducescatter_even, pb.reducescatter_plain,
+                lambda xs: torch.stack(xs).sum(0).chunk(len(xs))[0])
+    if kind == "allgather":
+        return ops.allgather, pb.allgather_plain, lambda xs: torch.cat(xs)
+    return (lambda r, x: ops.allreduce_quantized(r, x, op),
+            lambda xs: pb.allreduce_quantized_plain(xs, op), None)
+
+
+def _on_ranks(ops, xs):
+    """Rank r's copy of xs[r] on its card (the same tensor on one card)."""
+    return [x.to(d) for x, d in zip(xs, ops.devices)]
+
+
+def _on_dev(ts, dev):
+    return [t.to(dev) for t in ts]
+
+
+def _sync_all():
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+
+
+def _ring_call(ops, fn, xs, skews=None):
+    """One collective: rank r's kernel on rank r's stream, each stream
+    after the current one (where xs were made); the current stream then
+    waits for every rank. skews: cycles each rank's stream sleeps before
+    its launch."""
+    cur = torch.cuda.current_stream()
+    outs = []
+    for r, x in enumerate(xs):
+        s = ops.streams[r]
+        s.wait_stream(cur)
+        with torch.cuda.stream(s):
+            if skews is not None and skews[r]:
+                torch.cuda._sleep(skews[r])
+            outs.append(fn(r, x))
+    for s in ops.streams:
+        cur.wait_stream(s)
+    return outs
+
+
+def _ring_bytes(kind, length, w, elt):
+    """Bytes the call must move on one card: each rank's input read once
+    and its output written once."""
+    out = {"allreduce": length, "quantized": length,
+           "reducescatter": length // w, "allgather": w * length}[kind]
+    return w * (length + out) * elt
+
+
+def _ring_blocks(ops, kind, dtype, length, w):
+    """CUDA blocks a rank's kernel ran with (the group's buffers of the
+    class hold the count)."""
+    chunk = {"allreduce": length // w, "reducescatter": length // w,
+             "allgather": length, "quantized": length // w}[kind]
+    return ops._bufs[(kind, dtype, chunk)][0]["nblocks"]
+
+
+def _check_ring_case(ops, kind, combine, dtype, length, w, dev, gen, flush,
+                     timed):
+    fn, plain, lib = _ring_fns(ops, kind, combine)
+    xs = _ring_inputs(combine, dtype, length, w, dev, gen)
+    ranked = _on_ranks(ops, xs)
+    got = _on_dev(_ring_call(ops, fn, ranked), dev)
+    again = _on_dev(_ring_call(ops, fn, ranked), dev)
+    want = plain(xs)
+    _sync_all()
+    for r in range(w):
+        ops.check(r)
+    same = all(torch.equal(g, p) for g, p in zip(got, want))
+    repeat = all(torch.equal(g, a) for g, a in zip(got, again))
+    agree = kind == "reducescatter" or all(torch.equal(got[0], g)
+                                           for g in got)
+    err = max(float((g.double() - p.double()).abs().max())
+              for g, p in zip(got, want))
+    row = {"kind": kind, "combine": combine, "dtype": str(dtype),
+           "w": w, "length": length, "bit_identical": same,
+           "repeat_identical": repeat, "ranks_agree": agree,
+           "max_abs_err": err, "blocks_per_rank": _ring_blocks(
+               ops, kind, dtype, length, w)}
+    if not (same and repeat and agree):
+        emit("collectives", failed=row)
+        raise RuntimeError(f"ring {kind} {combine} {dtype} w={w} "
+                           f"[{length}]: {row}")
+    if timed:
+        bound_ms, bound_by = _bound(
+            _ring_bytes(kind, length, w, xs[0].element_size()),
+            (w - 1) * length, PEAK_F32_OPS_S)
+        row.update(
+            ms=time_ms(lambda: _ring_call(ops, fn, ranked), flush=flush),
+            plain_ms=time_ms(lambda: plain(xs), flush=flush),
+            library_ms=(time_ms(lambda: lib(xs), flush=flush)
+                        if lib is not None else None),
+            bound_ms=bound_ms, bound_by=bound_by)
+    del xs, ranked, got, again, want
+    return row
+
+
+def _stress(ops, w, dev, gen):
+    """STRESS_CALLS back-to-back calls of each kernel at 64K elements, each
+    rank's stream sleeping a random number of cycles before its launch,
+    inputs cycling over four sets; every output against the plain
+    version's for its inputs."""
+    from ray_tpu_torch.collective.backends import device_backend as db
+    from ray_tpu_torch.train import sharding
+
+    n = 1 << 16
+    rng = torch.Generator().manual_seed(w)
+    out = {}
+    for kind, combine, length in (
+            ("allreduce", "add", w * -(-db._bucket(n) // w)),
+            ("reducescatter", "add", sharding.padded_numel(n, w)),
+            ("allgather", "add", db._bucket(n)),
+            ("quantized", "add", db._qring_pad(n, w))):
+        fn, plain, _ = _ring_fns(ops, kind, combine)
+        inputs = [_ring_inputs(combine, torch.float32, length, w, dev, gen)
+                  for _ in range(4)]
+        wants = [plain(xs) for xs in inputs]
+        ranked = [_on_ranks(ops, xs) for xs in inputs]
+        results = []
+        for i in range(STRESS_CALLS):
+            skews = torch.randint(0, 50000, (w,), generator=rng).tolist()
+            results.append(_ring_call(ops, fn, ranked[i % 4], skews))
+        _sync_all()
+        for r in range(w):
+            ops.check(r)
+        bad = [i for i, got in enumerate(results)
+               if not all(torch.equal(g, p) for g, p in
+                          zip(_on_dev(got, dev), wants[i % 4]))]
+        out[kind] = {"calls": STRESS_CALLS, "mismatched": len(bad)}
+        if bad:
+            emit("collectives", failed="stress", kind=kind, w=w,
+                 mismatched_calls=bad[:20])
+            raise RuntimeError(f"ring {kind} at w={w}: {len(bad)} of "
+                               f"{STRESS_CALLS} skewed calls differ")
+    return out
+
+
+def _timeout_check(dev):
+    """A call that one rank withholds: the other's kernel gives up after
+    the group's timeout and the group raises TimeoutError; a new group
+    then works."""
+    from ray_tpu_torch import collective as col
+
+    handles = [col.init_collective_group(2, r, group_name="withheld",
+                                         timeout=RING_TIMEOUT_S)
+               for r in range(2)]
+    x = torch.ones(4096, device=dev)
+    handles[0].stream.wait_stream(torch.cuda.current_stream())
+    t0 = time.perf_counter()
+    with torch.cuda.stream(handles[0].stream):
+        handles[0].allreduce(x)
+    try:
+        handles[0].check()
+    except TimeoutError as e:
+        waited, message = time.perf_counter() - t0, str(e)
+    else:
+        raise RuntimeError("a withheld rank did not time out")
+    col.destroy_collective_group("withheld")
+    if waited > RING_TIMEOUT_S + 10:
+        raise RuntimeError(f"timeout after {waited} s, set to "
+                           f"{RING_TIMEOUT_S}")
+    handles = [col.init_collective_group(2, r, group_name="after",
+                                         timeout=RING_TIMEOUT_S)
+               for r in range(2)]
+    ops = handles[0].group.transport._ops
+    outs = _ring_call(ops, lambda r, t: handles[r].allreduce(t),
+                      _on_ranks(ops, [x, 2 * x]))
+    _sync_all()
+    for h in handles:
+        h.check()
+    col.destroy_collective_group("after")
+    if not all(torch.equal(o, 3 * x) for o in _on_dev(outs, dev)):
+        raise RuntimeError("the group after a timeout computed wrong sums")
+    return {"timeout_s": RING_TIMEOUT_S, "raised_after_s": waited,
+            "error": message, "next_group_ok": True}
+
+
+def phase_collectives(dev):
+    """B5-B8 against their plain versions, bit for bit, at w = 2, 3, 4
+    ranks, one stream each, rank r on cuda:(r % device_count) (all on
+    the one card as the script runs by default); stress; timeout; times
+    (one call: every rank's kernel) beside the bound and the yardstick."""
+    from ray_tpu_torch import collective as col
+
+    flush = flush_buffer(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows, stress = [], {}
+    for w in RING_WORLDS:
+        name = f"ring{w}"
+        handles = [col.init_collective_group(w, r, group_name=name,
+                                             timeout=RING_TIMEOUT_S * 5)
+                   for r in range(w)]
+        ops = handles[0].group.transport._ops
+        for kind, combine, dtype, length, n in _ring_cases(w):
+            timed = dtype == torch.float32 and combine == "add" and (
+                n != 10007)
+            rows.append({"n": n, **_check_ring_case(
+                ops, kind, combine, dtype, length, w, dev, gen, flush,
+                timed)})
+        stress[w] = _stress(ops, w, dev, gen)
+        col.destroy_collective_group(name)
+        torch.cuda.empty_cache()
+    timeout = _timeout_check(dev)
+    del flush
+    torch.cuda.empty_cache()
+    emit("collectives", cards=torch.cuda.device_count(), cases=len(rows),
+         all_bit_identical=True,
+         stress=stress, timeout=timeout,
+         timed=[r for r in rows if "ms" in r],
+         blocks_per_rank={f"{r['kind']} w={r['w']} n={r['n']}":
+                          r["blocks_per_rank"] for r in rows
+                          if r["combine"] == "add"
+                          and r["dtype"] == "torch.float32"})
+    summary = {}
+    for name, kind in (("ring_allreduce", "allreduce"),
+                       ("ring_reducescatter", "reducescatter"),
+                       ("ring_allgather", "allgather"),
+                       ("ring_allreduce_q", "quantized")):
+        main = next(r for r in rows if r["kind"] == kind and "ms" in r
+                    and r["n"] == GPT2_NUMEL)
+        summary[name] = {
+            "max_abs_err": max(r["max_abs_err"] for r in rows
+                               if r["kind"] == kind),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")}}
+    return summary
+
+
+# GPT-2 124M data-parallel over DP_WORKERS ranks sharing the card, each at
+# the single-GPU main path's 12 x 1024 tokens
+DP_WORKERS, DP_STEPS, DP_PROFILE_STEPS = 2, 10, 2
+# the int8 run's mean and last loss of the timed epoch against the exact
+# run's: within 2% (the quantized wire rounds each gradient element to
+# 1/254 of its 256-block's largest value, twice a hop)
+DP_INT8_LOSS_BAND = 0.02
+# one float32 DP step (TF32 off, 2 x 1024 tokens a rank) against one
+# single-worker step at 4 x 1024 from the same weights: relative L2 of
+# each gradient and of all together. The same f32 arithmetic, with the
+# batch mean taken as a mean of two means and the matmuls at other
+# shapes (another summation order), as gpt2_step's f32 kernel check.
+DP_F32_TOL = {"grad": 1e-3, "grads_all": 1e-4}
+DP_F32_BATCH = 2
+
+
+def gpt2_dp_operator_cls():
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.train import TrainingOperator
+
+    class Op(TrainingOperator):
+        def setup(self, config):
+            cfg = gpt2_config(config["dtype"])
+            self.register(
+                model=transformer.params_from_jax(config["params"], cfg),
+                optimizer=config["optimizer"], loss_fn=transformer.loss_fn,
+                to_tree=lambda m: (transformer.params_to_jax(m), None),
+                from_tree=lambda m, params, _: transformer.load_jax_params(
+                    m, params))
+            # each rank its own tokens, from a seed of its rank
+            self.register_data(train_loader=_Repeat(
+                _gpt_tokens(self.device, config["batch"], cfg,
+                            seed=10 + self.world_rank), config["steps"]))
+
+    return Op
+
+
+def _dp_trainer(params, batch, dtype, optimizer, steps, **kwargs):
+    from ray_tpu_torch.train import Trainer
+
+    return Trainer(gpt2_dp_operator_cls(), num_workers=DP_WORKERS,
+                   collective_transport="pallas",
+                   resources_per_worker={"GPU": 1},
+                   config={"params": params, "batch": batch, "dtype": dtype,
+                           "optimizer": optimizer, "steps": steps}, **kwargs)
+
+
+def _ring_launches():
+    from ray_tpu_torch.collective.backends import pallas_backend as pb
+
+    return {"ring_allreduce": pb.ALLREDUCE_LAUNCHES,
+            "ring_reducescatter": pb.REDUCESCATTER_LAUNCHES,
+            "ring_allgather": pb.ALLGATHER_LAUNCHES,
+            "ring_allreduce_q": pb.QUANTIZED_LAUNCHES}
+
+
+def _flat_params(model):
+    return torch.cat([p.detach().reshape(-1).cpu() for p in
+                      model.parameters()])
+
+
+def _dp_run(params, label, **kwargs):
+    """One run of the DP main path: warm-up, a timed epoch with launches
+    counted, a profiled epoch; returns its fields and rank 0's weights."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.collective import metrics as cm
+    from ray_tpu_torch.collective.backends import pallas_backend as pb
+
+    cfg = gpt2_config()
+    trainer = _dp_trainer(params, GPT_BATCH, torch.bfloat16, _adamw,
+                          WARMUP + DP_STEPS + DP_PROFILE_STEPS, **kwargs)
+    warm = trainer.train(num_steps=WARMUP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    pb.reset_launches()
+    saved0 = cm.QUANT_SAVED
+    result = trainer.train(num_steps=DP_STEPS)
+    launches = {**_ring_launches(), **_counts()}
+    saved = cm.QUANT_SAVED - saved0
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled = trainer.train(num_steps=DP_PROFILE_STEPS)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kernels)
+    ring = sum(e.device_time_total for e in kernels if "ring_" in e.name)
+    models = [w.operator.model for w in trainer.workers]
+    ranks_identical = all(torch.equal(a, b.to(a.device)) for a, b in zip(
+        models[0].parameters(), models[1].parameters()))
+    weights = _flat_params(models[0])
+    trainer.shutdown()
+    del trainer, models
+    torch.cuda.empty_cache()
+    per_rank_step = DP_WORKERS * DP_STEPS
+    fields = {
+        "run": label, "tokens_s": result["samples_per_s"] * cfg.max_seq,
+        "ranks": DP_WORKERS, "tokens_per_rank_step": GPT_BATCH * cfg.max_seq,
+        "steps": DP_STEPS,
+        "launches_per_rank_step": {k: v / per_rank_step
+                                   for k, v in launches.items()},
+        "ring_share_of_device_time": (ring / busy if busy else None),
+        "device_busy_ms_per_step": busy / 1e3 / DP_PROFILE_STEPS,
+        "wall_ms_per_step_profiled": (DP_WORKERS * GPT_BATCH
+                                      / profiled["samples_per_s"] * 1e3),
+        "max_memory_allocated": peak,
+        "warmup_last_loss": warm["last_train_loss"],
+        "train_loss": result["train_loss"],
+        "last_train_loss": result["last_train_loss"],
+        "quant_saved_bytes_per_rank_step": saved / per_rank_step,
+        "ranks_bit_identical": ranks_identical}
+    return fields, launches, weights
+
+
+def _dp_f32_check(dev, params):
+    """One float32 DP step's averaged gradient against one single-worker
+    step at the combined batch, from the same weights (TF32 off)."""
+    from ray_tpu_torch.models import transformer
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trainer = _dp_trainer(params, DP_F32_BATCH, torch.float32,
+                          lambda ps: torch.optim.SGD(ps, lr=0.0), 1)
+    trainer.train(num_steps=1)
+    # _apply_grads leaves the averaged gradient in each .grad
+    dp = {n: p.grad.detach().clone() for n, p in
+          trainer.workers[0].operator.model.named_parameters()}
+    trainer.shutdown()
+    cfg = gpt2_config(torch.float32)
+    model = transformer.params_from_jax(params, cfg).to(dev)
+    tokens = torch.cat([_gpt_tokens(dev, DP_F32_BATCH, cfg, seed=10 + r)
+                        for r in range(DP_WORKERS)])
+    transformer.loss_fn(model, tokens).backward()
+    one = {n: p.grad for n, p in model.named_parameters()}
+    errs = {"grad": max(_rel_l2(dp[n], one[n]) for n in one),
+            "grads_all": _rel_l2(torch.cat([g.flatten() for g in dp.values()]),
+                                 torch.cat([g.flatten()
+                                            for g in one.values()]))}
+    worst = max(one, key=lambda n: _rel_l2(dp[n], one[n]))
+    del model, dp, one
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return {"batch_per_rank": DP_F32_BATCH, "errors": errs,
+            "tol": DP_F32_TOL, "worst_grad": worst}
+
+
+def phase_train_gpt2_dp(dev):
+    """GPT-2 124M through Trainer(num_workers=2, collective_transport=
+    "pallas"): exact, quantize="int8" and sharded=True."""
+    from ray_tpu_torch.collective.backends import device_backend as db
+    from ray_tpu_torch.models import transformer
+
+    cfg = gpt2_config()
+    model = transformer.GPT(cfg, seed=0)
+    params, numel = transformer.params_to_jax(model), transformer.num_params(
+        model)
+    del model
+    if numel != GPT2_NUMEL:
+        raise RuntimeError(f"GPT-2 has {numel} parameters, not {GPT2_NUMEL}")
+    n_ln, n_flash = gpt2_launches_per_step(cfg)
+    runs, total = {}, collections.Counter()
+    want_ring = {"exact": {"ring_allreduce": 1},
+                 "int8": {"ring_allreduce_q": 1},
+                 "sharded": {"ring_reducescatter": 1, "ring_allgather": 1}}
+    weights = {}
+    for label, kwargs in (("exact", {}), ("int8", {"quantize": "int8"}),
+                          ("sharded", {"sharded": True})):
+        fields, launches, weights[label] = _dp_run(params, label, **kwargs)
+        runs[label] = fields
+        total.update(launches)
+        emit("train_gpt2_dp", **fields)
+        per = fields["launches_per_rank_step"]
+        ok = (all(per[k] == want_ring[label].get(k, 0)
+                  for k in _ring_launches())
+              and per["layernorm"] == n_ln
+              and per["flash_attn_fwd"] == n_flash
+              and launches["dense_routes"] == 0
+              and fields["ranks_bit_identical"]
+              and all(math.isfinite(fields[k]) for k in
+                      ("train_loss", "last_train_loss")))
+        if not ok:
+            raise RuntimeError(f"train_gpt2_dp {label}: {fields}")
+    exact, int8 = runs["exact"], runs["int8"]
+    saved = db._qring_saved_bytes(db._qring_pad(GPT2_NUMEL, DP_WORKERS),
+                                  DP_WORKERS, torch.float32, "sum")
+    diff = (weights["sharded"] - weights["exact"]).abs()
+    checks = {
+        "sharded_bit_identical_to_exact": bool(
+            torch.equal(weights["sharded"], weights["exact"])),
+        "sharded_max_abs_diff": float(diff.max()),
+        "int8_loss_rel_diff": max(abs(int8[k] - exact[k]) / abs(exact[k])
+                                  for k in ("train_loss", "last_train_loss")),
+        "int8_loss_band": DP_INT8_LOSS_BAND,
+        "int8_saved_bytes_per_rank_step": int8[
+            "quant_saved_bytes_per_rank_step"],
+        "qring_saved_bytes": saved,
+        "f32": _dp_f32_check(dev, params)}
+    emit("train_gpt2_dp", checks=checks)
+    f32 = checks["f32"]
+    if not (checks["sharded_bit_identical_to_exact"]
+            and checks["int8_loss_rel_diff"] <= DP_INT8_LOSS_BAND
+            and checks["int8_saved_bytes_per_rank_step"] == saved
+            and all(f32["errors"][k] <= DP_F32_TOL[k] for k in DP_F32_TOL)):
+        raise RuntimeError(f"train_gpt2_dp checks: {checks}")
+    return {k: total[k] for k in want_ring["exact"].keys()
+            | want_ring["int8"].keys() | want_ring["sharded"].keys()}
+
+
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "bn_bwd_sums": ("ray_tpu_torch/ops/csrc/bn_bwd_sums.cu",
                     "ray_tpu/ops/batchnorm.py:43"),
@@ -840,6 +1364,15 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                 "ray_tpu/ops/layernorm.py:26"),
     "flash_attn_fwd": ("ray_tpu_torch/ops/csrc/flash_attn_fwd.cu",
                        "ray_tpu/ops/attention.py:24"),
+    "ring_allreduce": ("ray_tpu_torch/ops/csrc/ring_collectives.cu",
+                       "ray_tpu/collective/backends/pallas_backend.py:143"),
+    "ring_reducescatter": ("ray_tpu_torch/ops/csrc/ring_collectives.cu",
+                           "ray_tpu/collective/backends/pallas_backend.py"
+                           ":183"),
+    "ring_allgather": ("ray_tpu_torch/ops/csrc/ring_collectives.cu",
+                       "ray_tpu/collective/backends/pallas_backend.py:206"),
+    "ring_allreduce_q": ("ray_tpu_torch/ops/csrc/ring_collectives.cu",
+                         "ray_tpu/collective/backends/pallas_backend.py:227"),
 }
 
 
@@ -855,10 +1388,12 @@ def main():
     phase_build()
     summary = {"bn_bwd_sums": phase_kernels(dev),
                **phase_transformer_kernels(dev)}
+    summary.update(phase_collectives(dev))
     phase_resnet50_step(dev)
     launches = {"bn_bwd_sums": phase_train(dev)}
     phase_gpt2_step(dev)
     launches.update(phase_train_gpt2(dev))
+    launches.update(phase_train_gpt2_dp(dev))
     print(smi)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,

@@ -1,5 +1,5 @@
-"""ray_tpu_torch.train — single-worker training on the GPU; port of
-ray_tpu/train (the RaySGD equivalent)."""
+"""ray_tpu_torch.train — single-worker and data-parallel training on the
+GPU; port of ray_tpu/train (the RaySGD equivalent)."""
 
 from ray_tpu_torch.train.operator import TrainingOperator
 from ray_tpu_torch.train.trainer import Trainer, TrainWorker

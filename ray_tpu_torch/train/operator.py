@@ -8,13 +8,33 @@ the loss stays on the device, so an epoch issues no host sync until its
 end, where all losses come over at once (as the JAX operator's one
 `float` per loss after the loop).
 
-This slice runs one worker: the multi-worker gradient allreduce, the
-ZeRO-sharded update, mesh mode and the compile cache of the JAX operator
-are later slices of the port (ROADMAP.md).
+With world_size > 1 the operator is one rank of a collective group of
+this process (`group_name`; collective/collective.py) and runs its work
+on the rank's CUDA stream. A step is the gradient step, which flattens
+every gradient into one f32 bucket, then:
+- replicated: `_allreduce_grads` (the group's allreduce, int8 under the
+  group's quantize default) divided by world_size, then the optimizer's
+  update of every parameter;
+- sharded (ZeRO, config["sharded_update"]): `_reducescatter_grads` over
+  the bucket padded to the shard layout (train/sharding.py), the user's
+  optimizer updating this rank's flat span with g / world_size, then
+  `_allgather_params`. The JAX operator takes the gathered shards through
+  host numpy; here they stay on the device, through the fused allgather,
+  relaying the same bytes.
+A rank's ring kernel finishes only once every rank has launched its own,
+so the ranks step in lockstep: `train_epoch_stages` is the epoch as a
+generator that yields right after each collective call, and
+`Trainer.train` advances every rank's generator in turn (see
+`lockstep`). The host syncs once, at the epoch's end, where it also
+reads the group's timeout status.
+
+Mesh mode and the compile cache of the JAX operator are later slices of
+the port (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, Iterable
 
@@ -23,22 +43,32 @@ import torch
 from torch import nn
 
 from ray_tpu_torch._private.device import resolve_device
+from ray_tpu_torch.collective import collective as col
+from ray_tpu_torch.train import sharding as _shard
 
 
 class TrainingOperator:
     """Subclass and implement setup(); call self.register(...) there."""
 
     def __init__(self, config: dict, world_rank: int, world_size: int,
-                 device=None):
-        if world_size != 1:
-            raise NotImplementedError(
-                "TrainingOperator runs one worker in this slice; "
-                "multi-GPU data-parallel training is a later slice "
-                "(ROADMAP.md queue A)")
+                 device=None, group_name: str | None = None):
         self.config = config or {}
         self.world_rank = world_rank
         self.world_size = world_size
         self.device = resolve_device(device)
+        self._group_name = group_name
+        self._handle = None
+        if world_size > 1:
+            if group_name is None:
+                raise ValueError("world_size > 1 needs the collective group "
+                                 "of the ranks (group_name)")
+            self._handle = col.get_handle(group_name, world_rank)
+            if self._handle.device != self.device:
+                raise ValueError(f"rank {world_rank} sits on "
+                                 f"{self._handle.device}, not {self.device}")
+        # sharded stays on at world_size == 1 (collectives degenerate to
+        # identity), as in the JAX operator
+        self._sharded = bool(self.config.get("sharded_update"))
         self._registered = False
         self._train_loader = None
         self._val_loader = None
@@ -48,6 +78,11 @@ class TrainingOperator:
         if not self._registered:
             raise RuntimeError(
                 "TrainingOperator.setup() must call self.register(...)")
+        if self._handle is not None and self._handle.stream is not None:
+            # the rank's stream starts after the set-up's work (model,
+            # optimizer state, device-resident batches)
+            self._handle.stream.wait_stream(
+                torch.cuda.current_stream(self.device))
 
     # ------------------------------------------------------------------
     # user surface
@@ -66,7 +101,9 @@ class TrainingOperator:
 
         model: an nn.Module; it moves to the operator's device. Mutable
             state (batchnorm statistics) lives in its buffers.
-        optimizer: optimizer factory, called with model.parameters().
+        optimizer: optimizer factory, called with model.parameters()
+            (under config["sharded_update"], with the rank's flat f32
+            span of the parameters instead).
         loss_fn(model, batch) -> scalar loss tensor.
         eval_fn(model, batch) -> metrics dict (values tensors or numbers);
             defaults to {"val_loss": loss_fn(model, batch)}.
@@ -77,12 +114,35 @@ class TrainingOperator:
         """
         self._registered = True
         self.model = model.to(self.device).train()
-        self.optimizer = optimizer(self.model.parameters())
+        self._params = list(self.model.parameters())
+        if self._sharded:
+            self._init_sharded_state(optimizer)
+        else:
+            self.optimizer = optimizer(self._params)
         self._loss_fn = loss_fn
         self._eval_fn = eval_fn or (
             lambda model, batch: {"val_loss": loss_fn(model, batch)})
         self._to_tree = to_tree
         self._from_tree = from_tree
+
+    def _init_sharded_state(self, optimizer):
+        """ZeRO weight-update sharding (arXiv:2004.13336): this rank keeps
+        the full parameters (the forward needs them) but only 1/N of the
+        optimizer state: the user's optimizer over the rank's uniform span
+        of the padded flat f32 parameter bucket (train/sharding.py)."""
+        if any(p.dtype != torch.float32 for p in self._params):
+            raise TypeError("sharded_update flattens the parameters into "
+                            "one f32 bucket; every parameter must be f32")
+        with torch.no_grad():
+            flat = torch.cat([p.reshape(-1) for p in self._params])
+        self._numel = flat.numel()
+        self._pad_numel = _shard.padded_numel(self._numel, self.world_size)
+        lo, hi = _shard.shard_span(self._numel, self.world_size,
+                                   self.world_rank)
+        padded = torch.cat([flat, flat.new_zeros(self._pad_numel
+                                                  - self._numel)])
+        self._param_shard = nn.Parameter(padded[lo:hi].clone())
+        self.optimizer = optimizer([self._param_shard])
 
     def register_data(self, *, train_loader: Iterable | None = None,
                       validation_loader: Iterable | None = None):
@@ -98,35 +158,137 @@ class TrainingOperator:
             return type(batch)(self._to_device(b) for b in batch)
         return torch.as_tensor(batch).to(self.device, non_blocking=True)
 
-    def _dispatch_batch(self, batch) -> torch.Tensor:
-        """One fused step; returns the loss, still on the device."""
-        batch = self._to_device(batch)
-        self.optimizer.zero_grad(set_to_none=True)
+    def _on_stream(self):
+        """The rank's stream as the current stream (nothing on the CPU or
+        for a single worker). Entered anew for each stretch of work
+        between two yields: a stream context must not span a yield, when
+        another rank's work runs."""
+        stream = self._handle.stream if self._handle is not None else None
+        return (torch.cuda.stream(stream) if stream is not None
+                else contextlib.nullcontext())
+
+    def _grad_step(self, batch):
+        """Loss (on the device) and every gradient in one flat f32
+        bucket, in parameter order."""
+        self.model.zero_grad(set_to_none=True)
         loss = self._loss_fn(self.model, batch)
         loss.backward()
+        flat = torch.cat([(p.grad if p.grad is not None
+                           else torch.zeros_like(p)).reshape(-1)
+                          for p in self._params])
+        return loss.detach(), flat
+
+    def _allreduce_grads(self, flat_grads):
+        """The gradient bucket summed over the ranks (the group's quantize
+        default applies to the wire). The caller divides by world_size
+        once every rank has made the call (on the CPU the sum is filled
+        in only then)."""
+        return col.allreduce(flat_grads, group_name=self._group_name,
+                             rank=self.world_rank)
+
+    def _reducescatter_grads(self, flat_grads):
+        """Sharded step, wire half 1: the bucket padded to the shard
+        layout, reduce-scattered: this rank receives the summed span it
+        updates."""
+        padded = torch.cat([flat_grads, flat_grads.new_zeros(
+            self._pad_numel - self._numel)])
+        if self.world_size == 1:
+            return padded  # the whole padded bucket IS the rank's span
+        return col.reducescatter(padded, group_name=self._group_name,
+                                 rank=self.world_rank)
+
+    def _allgather_params(self):
+        """Sharded step, wire half 2: every rank's updated shard, in rank
+        order, through the fused allgather (exact bytes, so the ranks'
+        parameters stay bit-identical under a quantized gradient wire)."""
+        shard = self._param_shard.detach()
+        if self.world_size == 1:
+            return [shard]
+        return col.allgather(shard, group_name=self._group_name,
+                             rank=self.world_rank)
+
+    def _set_params(self, shards):
+        flat = torch.cat(shards)[:self._numel]
+        with torch.no_grad():
+            for p, v in zip(self._params, flat.split(
+                    [p.numel() for p in self._params])):
+                p.copy_(v.view_as(p))
+
+    def _apply_grads(self, flat):
+        for p, g in zip(self._params, flat.split(
+                [p.numel() for p in self._params])):
+            p.grad = g.view_as(p)
         self.optimizer.step()
-        return loss.detach()
+
+    def _step(self, batch):
+        """One step as a generator that yields right after each collective
+        call and returns the loss, still on the device. A single
+        replicated worker runs the fused step and never yields."""
+        with self._on_stream():
+            batch = self._to_device(batch)
+            if self.world_size == 1 and not self._sharded:
+                self.optimizer.zero_grad(set_to_none=True)
+                loss = self._loss_fn(self.model, batch)
+                loss.backward()
+                self.optimizer.step()
+                return loss.detach()
+            loss, flat = self._grad_step(batch)
+            if self._sharded:
+                gshard = self._reducescatter_grads(flat)
+            else:
+                total = self._allreduce_grads(flat)
+        yield
+        with self._on_stream():
+            if not self._sharded:
+                self._apply_grads(total / self.world_size)
+                return loss
+            # ZeRO: update this rank's 1/N of (params, optimizer state),
+            # elementwise the same arithmetic as the replicated update
+            self._param_shard.grad = gshard / self.world_size
+            self.optimizer.step()
+            shards = self._allgather_params()
+        yield
+        with self._on_stream():
+            self._set_params(shards)
+        return loss
+
+    def _single(self, what: str):
+        if self.world_size > 1:
+            raise RuntimeError(
+                f"{what}: a rank of a group of {self.world_size} steps in "
+                "lockstep with its peers; Trainer.train drives every rank's "
+                "train_epoch_stages")
 
     def train_batch(self, batch) -> dict:
         """Sync path for step-at-a-time callers; returns a host float."""
-        loss = self._dispatch_batch(batch)
+        self._single("train_batch")
+        loss = lockstep([self._step(batch)])[0]
         self.global_step += 1
         return {"train_loss": float(loss)}
 
     def train_epoch(self, num_steps: int | None = None) -> dict:
+        self._single("train_epoch")
+        return lockstep([self.train_epoch_stages(num_steps)])[0]
+
+    def train_epoch_stages(self, num_steps: int | None = None):
+        """train_epoch as a generator that yields right after each
+        collective call and returns the epoch's result dict."""
         if self._train_loader is None:
             raise RuntimeError("no train_loader registered")
         self.model.train()
         t0 = time.perf_counter()
         losses, samples = [], 0
         for step, batch in enumerate(self._train_loader, 1):
-            losses.append(self._dispatch_batch(batch))
+            losses.append((yield from self._step(batch)))
             self.global_step += 1
             samples += _batch_size(batch)
             if num_steps is not None and step >= num_steps:
                 break
         # One sync for the whole epoch: the loop only enqueued work.
-        losses = torch.stack(losses).tolist() if losses else []
+        with self._on_stream():
+            losses = torch.stack(losses).tolist() if losses else []
+        if self._handle is not None:
+            self._handle.check()  # TimeoutError if a ring call gave up
         dt = time.perf_counter() - t0
         self.epoch += 1
         return {
@@ -149,7 +311,7 @@ class TrainingOperator:
         saved = {n: b.clone() for n, b in self.model.named_buffers()}
         metrics, samples = [], 0
         try:
-            with torch.no_grad():
+            with torch.no_grad(), self._on_stream():
                 for step, batch in enumerate(self._val_loader, 1):
                     metrics.append(self._eval_fn(self.model,
                                                  self._to_device(batch)))
@@ -157,11 +319,12 @@ class TrainingOperator:
                     if num_steps is not None and step >= num_steps:
                         break
         finally:
-            with torch.no_grad():
+            with torch.no_grad(), self._on_stream():
                 for n, b in self.model.named_buffers():
                     b.copy_(saved[n])
         # to the host after the loop: the loop only enqueued work
-        host = [{k: float(v) for k, v in m.items()} for m in metrics]
+        with self._on_stream():
+            host = [{k: float(v) for k, v in m.items()} for m in metrics]
         out = {k: float(np.mean([m[k] for m in host]))
                for k in (host[0] if host else {})}
         out["num_samples"] = samples
@@ -172,18 +335,28 @@ class TrainingOperator:
     # ------------------------------------------------------------------
 
     def state_dict(self) -> dict:
-        params, model_state = self._to_tree(self.model)
+        """Parameters and model state in the JAX layout, and the
+        optimizer's state: under sharded_update, this rank's shard."""
+        with self._on_stream():  # the copies wait for the rank's steps
+            params, model_state = self._to_tree(self.model)
+            opt_state = _to_host(self.optimizer.state_dict())
         return {
             "params": params,
             "model_state": model_state,
-            "opt_state": _to_host(self.optimizer.state_dict()),
+            "opt_state": opt_state,
             "epoch": self.epoch,
             "global_step": self.global_step,
         }
 
     def load_state_dict(self, state: dict):
-        self._from_tree(self.model, state["params"], state["model_state"])
-        self.optimizer.load_state_dict(state["opt_state"])
+        if self._sharded and self.world_size > 1:
+            raise NotImplementedError(
+                "load_state_dict under sharded_update: per-rank optimizer "
+                "shards come with the checkpoint files of ROADMAP.md A4/A5")
+        with self._on_stream():
+            self._from_tree(self.model, state["params"],
+                            state["model_state"])
+            self.optimizer.load_state_dict(state["opt_state"])
         self.epoch = state["epoch"]
         self.global_step = state["global_step"]
 
@@ -197,6 +370,31 @@ def _to_host(obj):
     if isinstance(obj, (list, tuple)):
         return type(obj)(_to_host(v) for v in obj)
     return obj
+
+
+def lockstep(stages: list) -> list:
+    """Runs the ranks' step generators in lockstep: each is advanced to
+    its next collective call in rank order, round after round, so every
+    rank's k-th collective is launched before any rank waits on its own;
+    returns their return values. Every generator must make the same
+    number of collective calls."""
+    results = [None] * len(stages)
+    live = list(range(len(stages)))
+    while live:
+        done = []
+        for i in live:
+            try:
+                next(stages[i])
+            except StopIteration as stop:
+                results[i] = stop.value
+                done.append(i)
+        if done and len(done) != len(live):
+            raise RuntimeError(
+                f"ranks {done} finished while ranks "
+                f"{sorted(set(live) - set(done))} still had collectives to "
+                "make: every rank must take the same number of steps")
+        live = [i for i in live if i not in done]
+    return results
 
 
 def _batch_size(batch) -> int:

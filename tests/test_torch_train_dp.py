@@ -1,0 +1,249 @@
+"""Port check: data-parallel and ZeRO training through the port's
+`Trainer(num_workers=2)` on the CPU, held against the JAX package.
+
+A small GPT (2 layers, 4 heads, d 64, vocab 256, T 64, f32) on
+`device="cpu"`, where the ring collectives take their plain versions.
+Both packages get one set of weights in the JAX params layout and the
+same numpy tokens; rank r trains on batch r.
+
+Tolerances:
+- ranks after 3 steps: bit-identical parameters (both ranks apply the
+  same reduced gradient; a two-term ring sum is the same on every rank).
+- one DP step (2 ranks x 2 sequences) against the JAX TrainingOperator's
+  single-worker step on the combined batch of 4, from the same weights:
+  the averaged gradient, per leaf, Σ|port − jax| / Σ|jax| ≤ 1e-4, as the
+  single-worker transformer check (f32 in another summation order, and
+  the mean over 4 sequences taken as a mean of two means).
+- sharded=True against replicated at w = 2, AdamW, 3 steps: bit-identical
+  parameters and losses (two-term sums commute, AdamW is elementwise).
+- quantize="int8": the saved-bytes counter grows by `_qring_saved_bytes`
+  per rank and step, exactly.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu.models import transformer as jtr
+from ray_tpu.train import sharding as jshard
+from ray_tpu_torch.collective import metrics as cm
+from ray_tpu_torch.collective.backends import device_backend as db
+from ray_tpu_torch.models import transformer as ttr
+from ray_tpu_torch.train import Trainer, TrainingOperator
+from ray_tpu_torch.train import sharding as tshard
+
+B, T, STEPS, W = 2, 64, 3, 2
+JCFG = dataclasses.replace(jtr.TINY, dtype=jnp.float32, max_seq=T)
+TCFG = dataclasses.replace(ttr.TINY, dtype=torch.float32, max_seq=T,
+                           remat=False)
+GRAD_TOL = 1e-4
+LEAVES = (["wte", "wpe", "lnf_w", "lnf_b"]
+          + [f"blocks.{k}" for k in ttr._BLOCK_KEYS])
+
+
+class _Stream:
+    """Hands out the next batch each time it is iterated."""
+
+    def __init__(self, batches):
+        self.batches, self.pos = batches, 0
+
+    def __iter__(self):
+        while self.pos < len(self.batches):
+            self.pos += 1
+            yield self.batches[self.pos - 1]
+
+
+class DPOp(TrainingOperator):
+    def setup(self, config):
+        opt = config.get("opt", "sgd")
+        self.register(
+            model=ttr.params_from_jax(config["params"], TCFG),
+            optimizer=(lambda ps: torch.optim.SGD(ps, lr=0.1)) if opt == "sgd"
+            else (lambda ps: torch.optim.AdamW(ps, lr=1e-2,
+                                               weight_decay=0.1)),
+            loss_fn=ttr.loss_fn,
+            to_tree=lambda m: (ttr.params_to_jax(m), None),
+            from_tree=lambda m, params, _: ttr.load_jax_params(m, params))
+        self.register_data(
+            train_loader=_Stream(config["batches"][self.world_rank]))
+
+
+def _leaf(tree, name):
+    for k in name.split("."):
+        tree = tree[k]
+    return np.asarray(tree)
+
+
+def _rel_l1(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.abs(got - want).sum() / max(np.abs(want).sum(), 1e-30))
+
+
+def _grads_tree(model):
+    tree = {k: getattr(model, k).grad.numpy()
+            for k in ("wte", "wpe", "lnf_w", "lnf_b")}
+    tree["blocks"] = {k: np.stack([getattr(b, k).grad.numpy()
+                                   for b in model.blocks])
+                      for k in ttr._BLOCK_KEYS}
+    return tree
+
+
+def _params(model):
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+@pytest.fixture(scope="module")
+def data():
+    params = ttr.params_to_jax(ttr.GPT(TCFG, seed=3))
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, TCFG.vocab_size, (W, STEPS, B, T),
+                          dtype=np.int32)
+    return params, tokens
+
+
+def _train(data, steps=STEPS, **kwargs):
+    params, tokens = data
+    trainer = Trainer(DPOp, num_workers=W, device="cpu", config={
+        "params": params, "batches": [list(t) for t in tokens],
+        "opt": kwargs.pop("opt", "sgd")}, **kwargs)
+    losses = [trainer.train(num_steps=1)["last_train_loss"]
+              for _ in range(steps)]
+    models = [w.operator.model for w in trainer.workers]
+    trainer.shutdown()
+    return losses, models
+
+
+@pytest.fixture(scope="module")
+def replicated(data):
+    return _train(data)
+
+
+@pytest.fixture(scope="module")
+def jax_grads(data):
+    import optax
+
+    from ray_tpu.train.operator import TrainingOperator as JaxOperator
+
+    params, tokens = data
+    record = optax.GradientTransformation(
+        lambda p: jax.tree.map(jnp.zeros_like, p),
+        lambda updates, state, params=None: (updates, updates))
+
+    class Op(JaxOperator):
+        def setup(self, config):
+            self.register(
+                model_init=lambda key: jax.tree.map(jnp.asarray, params),
+                loss_fn=lambda p, b: jtr.loss_fn(p, b, JCFG),
+                optimizer=optax.chain(record, optax.sgd(0.1)))
+            self.register_data(train_loader=[
+                np.concatenate([tokens[0, 0], tokens[1, 0]])])
+
+    with pytest.MonkeyPatch.context() as mp:
+        # one step: the AOT compile cache would only add its export
+        mp.setenv("RAY_TPU_COMPILE_CACHE", "0")
+        op = Op({}, 0, 1)
+        op.train_epoch(num_steps=1)
+    return jax.tree.map(np.array, op.opt_state[0])
+
+
+@pytest.fixture(scope="module")
+def one_dp_step(data):
+    _, models = _train(data, steps=1)
+    return [_grads_tree(m) for m in models]
+
+
+def test_ranks_stay_bit_identical(replicated):
+    losses, (m0, m1) = replicated
+    assert len(losses) == STEPS and all(np.isfinite(losses))
+    for (n, p0), p1 in zip(m0.named_parameters(), m1.parameters()):
+        assert torch.equal(p0, p1), n
+
+
+@pytest.mark.parametrize("leaf", LEAVES)
+def test_dp_step_matches_jax_operator_at_combined_batch(one_dp_step,
+                                                        jax_grads, leaf):
+    err = _rel_l1(_leaf(one_dp_step[0], leaf), _leaf(jax_grads, leaf))
+    assert err <= GRAD_TOL, err
+    assert np.array_equal(_leaf(one_dp_step[0], leaf),
+                          _leaf(one_dp_step[1], leaf))
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adamw"])
+def test_sharded_bit_identical_to_replicated(data, replicated, opt):
+    want_losses, want = (replicated if opt == "sgd"
+                         else _train(data, opt=opt))
+    got_losses, got = _train(data, sharded=True, opt=opt)
+    assert got_losses == want_losses
+    for r in range(W):
+        assert torch.equal(_params(got[r]), _params(want[r])), r
+
+
+def test_sharded_single_worker_matches_replicated(data):
+    """sharded=True stays on at world size 1 (no collective: the padded
+    bucket is the rank's span), with the same update as the fused
+    single-worker step."""
+    params, tokens = data
+    out = []
+    for sharded in (False, True):
+        trainer = Trainer(DPOp, device="cpu", sharded=sharded, config={
+            "params": params, "batches": [list(tokens[0])], "opt": "adamw"})
+        trainer.train(num_steps=2)
+        out.append(_params(trainer.workers[0].operator.model))
+        trainer.shutdown()
+    assert torch.equal(out[0], out[1])
+
+
+def test_int8_counts_saved_bytes(data):
+    numel = ttr.num_params(ttr.GPT(TCFG))
+    before = cm.QUANT_SAVED
+    losses, (m0, m1) = _train(data, steps=2, quantize="int8")
+    per_call = db._qring_saved_bytes(db._qring_pad(numel, W), W,
+                                     torch.float32, "sum")
+    assert per_call > 0
+    assert cm.QUANT_SAVED - before == 2 * W * per_call
+    assert all(np.isfinite(losses))
+    assert torch.equal(_params(m0), _params(m1))
+
+
+@pytest.mark.parametrize("numel,world", [(1, 1), (1000, 2), (124402944, 2),
+                                         (70001, 3), (65536, 4)])
+def test_sharding_matches_reference(numel, world):
+    assert tshard.padded_numel(numel, world) == jshard.padded_numel(numel,
+                                                                    world)
+    assert tshard.shard_spans(numel, world) == jshard.shard_spans(numel,
+                                                                  world)
+    for r in range(world):
+        assert tshard.shard_span(numel, world, r) == jshard.shard_span(
+            numel, world, r)
+
+
+def test_opt_nbytes_matches_reference():
+    """AdamW's state over a shard holds what optax.adam's does: two moments
+    of the shard and one 4-byte step count."""
+    import optax
+
+    s = 4096
+    shard = torch.zeros(s, requires_grad=True)
+    opt = torch.optim.AdamW([shard])
+    shard.grad = torch.ones(s)
+    opt.step()
+    want = jshard.opt_nbytes(optax.adam(1e-3).init(jnp.zeros(s)))
+    assert tshard.opt_nbytes(opt.state_dict()) == want
+
+
+def test_trainer_rejects_mismatched_step_counts(data):
+    params, tokens = data
+    batches = [list(tokens[0]), list(tokens[1][:1])]
+    trainer = Trainer(DPOp, num_workers=W, device="cpu",
+                      collective_timeout=0.01,
+                      config={"params": params, "batches": batches})
+    try:
+        with pytest.raises(RuntimeError, match="same number of steps"):
+            trainer.train(num_steps=2)
+    finally:
+        trainer.shutdown()
