@@ -73,6 +73,7 @@ import torch
 # cores. The card's name and limit print beside every result.
 PEAK_BYTES_S, PEAK_F32_OPS_S = 3.35e12, 67.0e12
 PEAK_BF16_OPS_S = 989.0e12  # dense, tensor cores
+NVLINK_BYTES_S = 450.0e9  # one H100's NVLink, each way
 
 BATCH, HW, STEPS, WARMUP = 256, 224, 30, 3
 # kernel vs plain sums: |kernel − plain| per channel over Σ|term| of that
@@ -186,17 +187,78 @@ def phase_device():
     return smi
 
 
+def _ptxas_table(log):
+    """{kernel: {registers, smem, spill_stores, spill_loads}} from one
+    nvcc -Xptxas -v log (smem: static bytes; the flash kernel's tiles are
+    dynamic)."""
+    import re
+    import shutil
+
+    table, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1)
+            table[name] = {}
+        elif name and "spill stores" in ln:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
+            table[name].update(spill_stores=int(st), spill_loads=int(ld))
+        elif name and "Used" in ln and "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln)
+            smem = re.search(r"(\d+) bytes smem", ln)
+            table[name].update(registers=int(regs.group(1)),
+                               smem=int(smem.group(1)) if smem else 0)
+    if shutil.which("c++filt") and table:
+        names = subprocess.run(["c++filt"], input="\n".join(table),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+        if len(names) == len(table):
+            table = dict(zip(names, table.values()))
+    return table
+
+
+def _sass_counts(name, ops):
+    """Occurrences of each SASS opcode in ops in the built library."""
+    from pathlib import Path
+
+    from ray_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(_build._target(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return {op: sass.count(op) for op in ops}
+
+
 def phase_build():
+    """Builds every source; prints each kernel instance's registers, static
+    shared memory and spills from ptxas, and the wgmma (HGMMA) and TMA
+    load (UTMALDG) instructions in the flash library's SASS. Fails on a
+    spill in the flash or ring kernels or on a flash library without
+    either instruction."""
     from ray_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     logs = _build.build_all()
-    keep = ("Function properties for", "registers", "spill")
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if any(k in ln for k in keep)]
-             for name, log in logs.items()}
-    emit("build", seconds=time.perf_counter() - t0, sources=sorted(logs),
-         build_dir=str(_build.BUILD_DIR), ptxas=ptxas)
+    seconds = time.perf_counter() - t0
+    ptxas = {name: _ptxas_table(log) for name, log in logs.items()}
+    sass = _sass_counts("flash_attn_fwd", ("HGMMA", "UTMALDG"))
+    # every instance of the flash and ring kernels; the other sources in sum
+    shown = {name: (table if name in ("flash_attn_fwd", "ring_collectives")
+                    else {"instances": len(table),
+                          "max_registers": max(v["registers"]
+                                               for v in table.values()),
+                          "spill_bytes": sum(v["spill_stores"]
+                                             + v["spill_loads"]
+                                             for v in table.values())})
+             for name, table in ptxas.items() if table}
+    emit("build", seconds=seconds, sources=sorted(logs),
+         build_dir=str(_build.BUILD_DIR), ptxas=shown, flash_sass=sass)
+    spills = {k: v for name in ("flash_attn_fwd", "ring_collectives")
+              for k, v in ptxas.get(name, {}).items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    if spills or not all(sass.values()):
+        raise RuntimeError(f"build: spills {spills}, flash SASS {sass}")
 
 
 def resnet50_bn_shapes(dev):
@@ -866,13 +928,16 @@ def _ring_cases(w):
     """(kernel, combine, dtype, padded payload per rank, n) of one world
     size: each payload padded as the collective layer pads it on the main
     path (allreduce and allgather to _bucket(n); the reduce-scatter to the
-    sharded layout, padded_numel; the quantized ring to _qring_pad)."""
+    sharded layout, padded_numel; the quantized ring to _qring_pad). GPT-2's
+    bucket: every kernel at w = 2, the allgather at every w."""
     from ray_tpu_torch.collective.backends import device_backend as db
     from ray_tpu_torch.train import sharding
 
-    sizes = RING_SIZES + ((GPT2_NUMEL,) if w == 2 else ())
     cases = []
-    for n in sizes:
+    if w != 2:
+        cases.append(("allgather", "add", torch.float32, db._bucket(
+            sharding.padded_numel(GPT2_NUMEL, w) // w), GPT2_NUMEL))
+    for n in RING_SIZES + ((GPT2_NUMEL,) if w == 2 else ()):
         # the allreduce wrapper pads _bucket(n) to w chunks; so does this,
         # for the plain version
         b = w * -(-db._bucket(n) // w)
@@ -958,11 +1023,36 @@ def _ring_call(ops, fn, xs, skews=None):
 
 
 def _ring_bytes(kind, length, w, elt):
-    """Bytes the call must move on one card: each rank's input read once
-    and its output written once."""
+    """Bytes the call must move through device memory: each rank's input
+    read once and its output written once (the allgather's w chunks of an
+    output land there from w ranks, the same bytes)."""
     out = {"allreduce": length, "quantized": length,
            "reducescatter": length // w, "allgather": w * length}[kind]
     return w * (length + out) * elt
+
+
+def _ring_bound(ops, kind, length, w, elt):
+    """(bound ms, "bytes", basis) of one call. All ranks on one card: every
+    rank's bytes through its one memory at PEAK_BYTES_S. Ranks on c cards:
+    the larger of a card's share of those bytes at PEAK_BYTES_S and the
+    bytes a rank must send to its peers at NVLINK_BYTES_S (the allgather
+    its chunk to w - 1 peers; a ring allreduce 2(w - 1)/w of its payload,
+    the reduce-scatter half that; the int8 ring a quarter of those bytes
+    and its scales)."""
+    cards = len({d.index for d in ops.devices})
+    t_mem = _ring_bytes(kind, length, w, elt) / cards / PEAK_BYTES_S
+    if cards == 1:
+        return (t_mem * 1e3, "bytes",
+                "one card: every rank's input and output through its memory")
+    sent = {"allgather": (w - 1) * length * elt,
+            "allreduce": 2 * (w - 1) * length // w * elt,
+            "reducescatter": (w - 1) * length // w * elt,
+            "quantized": 2 * (w - 1) * length // w
+            * (1 + 4 / 256)}[kind]
+    t_link = sent / NVLINK_BYTES_S
+    return (max(t_mem, t_link) * 1e3, "bytes",
+            f"{cards} cards: " + ("each card's memory" if t_mem >= t_link
+                                  else "each rank's NVLink sends"))
 
 
 def _ring_blocks(ops, kind, dtype, length, w):
@@ -1000,15 +1090,14 @@ def _check_ring_case(ops, kind, combine, dtype, length, w, dev, gen, flush,
         raise RuntimeError(f"ring {kind} {combine} {dtype} w={w} "
                            f"[{length}]: {row}")
     if timed:
-        bound_ms, bound_by = _bound(
-            _ring_bytes(kind, length, w, xs[0].element_size()),
-            (w - 1) * length, PEAK_F32_OPS_S)
+        bound_ms, bound_by, basis = _ring_bound(ops, kind, length, w,
+                                                xs[0].element_size())
         row.update(
             ms=time_ms(lambda: _ring_call(ops, fn, ranked), flush=flush),
             plain_ms=time_ms(lambda: plain(xs), flush=flush),
             library_ms=(time_ms(lambda: lib(xs), flush=flush)
                         if lib is not None else None),
-            bound_ms=bound_ms, bound_by=bound_by)
+            bound_ms=bound_ms, bound_by=bound_by, bound_basis=basis)
     del xs, ranked, got, again, want
     return row
 
@@ -1053,30 +1142,54 @@ def _stress(ops, w, dev, gen):
     return out
 
 
-def _timeout_check(dev):
-    """A call that one rank withholds: the other's kernel gives up after
-    the group's timeout and the group raises TimeoutError; a new group
-    then works."""
+def _withhold(dev, kind, w):
+    """One call that the last of w ranks withholds: every other rank's
+    kernel gives up after the group's timeout, and the group raises a
+    TimeoutError at each of them that names the withheld rank."""
+    import re
+
     from ray_tpu_torch import collective as col
 
-    handles = [col.init_collective_group(2, r, group_name="withheld",
+    name = f"withheld_{kind}_{w}"
+    handles = [col.init_collective_group(w, r, group_name=name,
                                          timeout=RING_TIMEOUT_S)
-               for r in range(2)]
+               for r in range(w)]
     x = torch.ones(4096, device=dev)
-    handles[0].stream.wait_stream(torch.cuda.current_stream())
+    cur = torch.cuda.current_stream()
     t0 = time.perf_counter()
-    with torch.cuda.stream(handles[0].stream):
-        handles[0].allreduce(x)
-    try:
-        handles[0].check()
-    except TimeoutError as e:
-        waited, message = time.perf_counter() - t0, str(e)
-    else:
-        raise RuntimeError("a withheld rank did not time out")
-    col.destroy_collective_group("withheld")
-    if waited > RING_TIMEOUT_S + 10:
-        raise RuntimeError(f"timeout after {waited} s, set to "
-                           f"{RING_TIMEOUT_S}")
+    for h in handles[:-1]:
+        h.stream.wait_stream(cur)
+        with torch.cuda.stream(h.stream):
+            getattr(h, kind)(x)
+    messages = []
+    for h in handles[:-1]:
+        try:
+            h.check()
+        except TimeoutError as e:
+            messages.append(str(e))
+        else:
+            raise RuntimeError(f"a withheld rank did not time out ({kind}, "
+                               f"w={w})")
+    waited = time.perf_counter() - t0
+    col.destroy_collective_group(name)
+    named = [int(m.group(1)) for m in
+             (re.search(r"(?:of|from) rank (\d+)", e) for e in messages)
+             if m]
+    if waited > RING_TIMEOUT_S + 10 or named != [w - 1] * (w - 1):
+        raise RuntimeError(f"{kind} w={w}: raised after {waited} s (timeout "
+                           f"{RING_TIMEOUT_S}), naming {named}: {messages}")
+    return {"raised_after_s": waited, "errors": messages}
+
+
+def _timeout_check(dev):
+    """The withheld rank, for the allreduce at w = 2 and the allgather at
+    w = 2, 3, 4; then a new group works."""
+    from ray_tpu_torch import collective as col
+
+    cases = {"allreduce w=2": _withhold(dev, "allreduce", 2),
+             **{f"allgather w={w}": _withhold(dev, "allgather", w)
+                for w in RING_WORLDS}}
+    x = torch.ones(4096, device=dev)
     handles = [col.init_collective_group(2, r, group_name="after",
                                          timeout=RING_TIMEOUT_S)
                for r in range(2)]
@@ -1089,8 +1202,8 @@ def _timeout_check(dev):
     col.destroy_collective_group("after")
     if not all(torch.equal(o, 3 * x) for o in _on_dev(outs, dev)):
         raise RuntimeError("the group after a timeout computed wrong sums")
-    return {"timeout_s": RING_TIMEOUT_S, "raised_after_s": waited,
-            "error": message, "next_group_ok": True}
+    return {"timeout_s": RING_TIMEOUT_S, "cases": cases,
+            "next_group_ok": True}
 
 
 def phase_collectives(dev):

@@ -22,10 +22,18 @@ elements), as the reference:
       bytes, each rank writing the received chunk into its output, so
       that in the quantized ring every rank dequantizes identical data.
 
+The allgather is not a ring here: the reference's relay follows the TPU's
+ring ICI, while the port's ranks reach each other all to all (one card,
+or cards with peer access). Each rank stores its payload straight into
+slot r of every rank's output, and learns the peers' output addresses of
+the call from their mailboxes (csrc header). Its result is the same
+bytes.
+
 Every rank of a group lives in this process. `_PallasOps` is the group's
 rendezvous: each rank's device (rank r on cuda:(r % device_count)), its
 stream, its status words, the slot, flag and acknowledgement buffers of
-every (op, dtype, chunk) class, and the calls' sequence numbers. A rank's
+every (op, dtype, chunk) class (the allgather's: mailboxes, done flags and
+a device table of their addresses), and the calls' sequence numbers. A rank's
 kernel runs on the rank's stream, which must be the current stream when
 the rank calls: its blocks spin until the peers' kernels, on their own
 streams, have sent their data, so two ranks on one stream would wait on
@@ -40,11 +48,12 @@ its kernel for CUDA tensors, or raises; there is no other path. On the CPU
 a rank's call returns its output tensor at once and the group fills every
 rank's output when the last rank has called, by running the plain version
 over all ranks' inputs. `check(rank)` is where a rank's calls are known
-to be complete: it waits for the rank's stream and raises TimeoutError if
-one of its kernels gave up waiting for a peer (or, on the CPU, if a call
-still lacks a rank after the timeout). The plain versions run the same
-schedule over the w ranks' tensors, hop by hop, in the same combine
-order; `chip_smoke.py` holds every kernel against them bit for bit.
+to be complete: it waits for the rank's stream and raises TimeoutError,
+naming the rank waited for, if one of its kernels gave up waiting for a
+peer (or, on the CPU, if a call still lacks a rank after the timeout).
+The plain versions run the same schedule over the w ranks' tensors, hop
+by hop, in the same combine order; `chip_smoke.py` holds every kernel
+against them bit for bit.
 """
 
 from __future__ import annotations
@@ -82,7 +91,7 @@ _COMBINE_FNS = {"add": torch.add, "max": torch.maximum,
 
 # csrc codes, and the instances the source builds (chip_smoke.py holds
 # each against its plain version on the card)
-_KIND = {"allreduce": 0, "reducescatter": 1, "allgather": 2, "quantized": 3}
+_KIND = {"allreduce": 0, "reducescatter": 1, "quantized": 3}
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 _OP = {"add": 0, "max": 1, "min": 2, "mul": 3}
 _BUILT = {("allreduce", torch.float32, c) for c in _OP} | {
@@ -90,7 +99,8 @@ _BUILT = {("allreduce", torch.float32, c) for c in _OP} | {
     ("reducescatter", torch.float32, "add"),
     ("allgather", torch.float32, "add"),
     ("quantized", torch.float32, "add"), ("quantized", torch.float32, "max")}
-_WAITED = {1: "data from", 2: "the acknowledgement of"}
+# what a timed-out block waited for (csrc: Waited, status word 0)
+WAITED_DATA, WAITED_ACK, WAITED_MAIL, WAITED_DONE = 1, 2, 3, 4
 
 # A block's share of a chunk before the grid grows (elements; quant
 # blocks for the quantized ring): small payloads take few blocks, so few
@@ -136,18 +146,35 @@ def reducescatter_plain(xs: list[torch.Tensor]) -> list[torch.Tensor]:
 
 
 def allgather_plain(xs: list[torch.Tensor]) -> list[torch.Tensor]:
-    """The relay ring allgather over ranks' [B] payloads -> each rank's
-    [w, B] (B7's schedule)."""
+    """The direct allgather over ranks' [B] payloads -> each rank's [w, B]
+    (B7's schedule): rank p's payload into slot p of every output."""
     w = len(xs)
     outs = [x.new_empty((w, x.numel())) for x in xs]
-    send = list(xs)
-    for r in range(w):
-        outs[r][r] = xs[r]
-    for s in range(1, w):
-        send = [send[(r - 1) % w] for r in range(w)]
-        for r in range(w):
-            outs[r][(r - s) % w] = send[r]
+    for p in range(w):
+        for out in outs:
+            out[p] = xs[p]
     return outs
+
+
+def describe_wait(rank: int, world: int, status) -> tuple[int, str]:
+    """The rank that a timed-out kernel of `rank` waited for, and what it
+    waited for, from the rank's status words [waited, where, block, call]
+    (where: the hop in the ring kernels, the awaited rank in the direct
+    allgather)."""
+    waited, where, block, call = (int(v) for v in status)
+    if waited == WAITED_DATA:
+        peer = (rank - 1) % world
+        what = f"data from rank {peer} at hop {where}"
+    elif waited == WAITED_ACK:
+        peer = (rank + 1) % world
+        what = f"the acknowledgement of rank {peer} at hop {where}"
+    elif waited in (WAITED_MAIL, WAITED_DONE):
+        peer = where
+        what = (f"the output address of rank {peer}" if waited == WAITED_MAIL
+                else f"the done flag of rank {peer}")
+    else:
+        raise ValueError(f"status {waited} names no wait")
+    return peer, f"{what} (call {call}, block {block})"
 
 
 def allreduce_quantized_plain(xs: list[torch.Tensor], op
@@ -187,6 +214,11 @@ def _lib():
             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p])
         lib.ring_launch.restype = ctypes.c_int
+        lib.allgather_launch.argtypes = (
+            [ctypes.c_void_p] * 4
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+               ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p])
+        lib.allgather_launch.restype = ctypes.c_int
         lib.ring_enable_peer_access.argtypes = [ctypes.c_int]
         lib.ring_enable_peer_access.restype = ctypes.c_int
         lib.ring_error_string.argtypes = [ctypes.c_int]
@@ -298,30 +330,40 @@ class _PallasOps:
                 call["then"].append(lambda: res.copy_(fn(src)))
         return res
 
-    def _buffers(self, key: tuple, hops: int, chunk: int, dtype,
-                 quantized: bool) -> list[dict]:
-        """The slot, flag and acknowledgement buffers of one (op, dtype,
-        chunk) class on every rank, made at its first call. They are made
-        and zeroed on each card's default stream, and every rank's stream
-        waits for that before its next launch: so no rank's kernel can
-        store into a peer's buffer before the peer's zeroing has run,
-        and the host does not wait."""
+    def _buffers(self, key: tuple, hops: int, chunk: int, dtype) -> list[dict]:
+        """The buffers of one (op, dtype, chunk) class on every rank, made
+        at its first call: the ring kernels' slot, flag and acknowledgement
+        buffers; the direct allgather's mailbox ([out address, sequence
+        number]), done flags ([w, nblocks]) and the device table of every
+        rank's mailbox and done-flag addresses. They are made and zeroed on
+        each card's default stream, and every rank's stream waits for that
+        before its next launch: so no rank's kernel can store into a peer's
+        buffer before the peer's zeroing has run, and the host does not
+        wait."""
         bufs = self._bufs.get(key)
         if bufs is not None:
             return bufs
+        kind, w = key[0], self.world
+        quantized = kind == "quantized"
         units = chunk // QUANT_BLOCK if quantized else chunk
         per = _QBLOCKS_PER_BLOCK if quantized else _ELEMS_PER_BLOCK
         nblocks = max(1, min(self._max_blocks, -(-units // per)))
         hops = max(1, hops)
-        bufs, done = [], []
+        bufs = []
         for d in self.devices:
-            side = torch.cuda.default_stream(d)
-            with torch.cuda.device(d), torch.cuda.stream(side):
-                b = {"nblocks": nblocks,
-                     "flags": torch.zeros((hops, nblocks), dtype=torch.int32,
-                                          device=d),
-                     "acks": torch.zeros((hops, nblocks), dtype=torch.int32,
-                                         device=d)}
+            with torch.cuda.device(d), torch.cuda.stream(
+                    torch.cuda.default_stream(d)):
+                b = {"nblocks": nblocks}
+                if kind == "allgather":
+                    b["mail"] = torch.zeros(2, dtype=torch.int64, device=d)
+                    b["done"] = torch.zeros((w, nblocks), dtype=torch.int32,
+                                            device=d)
+                    bufs.append(b)
+                    continue
+                b["flags"] = torch.zeros((hops, nblocks), dtype=torch.int32,
+                                         device=d)
+                b["acks"] = torch.zeros((hops, nblocks), dtype=torch.int32,
+                                        device=d)
                 if quantized:
                     b["recv"] = torch.empty((hops, chunk), dtype=torch.int8,
                                             device=d)
@@ -330,15 +372,25 @@ class _PallasOps:
                 else:
                     b["recv"] = torch.empty((hops, chunk), dtype=dtype,
                                             device=d)
-                ev = torch.cuda.Event()
-                ev.record(side)
             bufs.append(b)
+        if kind == "allgather":
+            table = ([b["mail"].data_ptr() for b in bufs]
+                     + [b["done"].data_ptr() for b in bufs])
+            for b, d in zip(bufs, self.devices):
+                with torch.cuda.device(d), torch.cuda.stream(
+                        torch.cuda.default_stream(d)):
+                    b["peers"] = torch.tensor(table, dtype=torch.int64,
+                                              device=d)
+        done = []
+        for d in sorted(set(self.devices), key=lambda d: d.index):
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.default_stream(d))
             done.append(ev)
         for s in self.streams:
             for ev in done:
                 s.wait_event(ev)
         self._bufs[key] = bufs
-        self._seqs[key] = [0] * self.world
+        self._seqs[key] = [0] * w
         return bufs
 
     def _validate(self, rank, kind, combine, x):
@@ -359,26 +411,33 @@ class _PallasOps:
                 "stream would wait on each other")
 
     def _launch(self, rank, kind, combine, x, out, chunk, hops):
-        """Launches one rank's ring kernel on its stream."""
+        """Launches one rank's ring (or direct allgather) kernel on its
+        stream."""
         dtype, dev, stream = x.dtype, self.devices[rank], self.streams[rank]
-        quantized = kind == "quantized"
         key = (kind, dtype, chunk)
-        bufs = self._buffers(key, hops, chunk, dtype, quantized)
+        bufs = self._buffers(key, hops, chunk, dtype)
         w = self.world
         own, right, left = bufs[rank], bufs[(rank + 1) % w], bufs[(rank - 1) % w]
         seqs = self._seqs[key]
         seqs[rank] += 1
+        seq, timeout_ns = seqs[rank] & 0xFFFFFFFF, int(self.timeout * 1e9)
+        status = self._status[rank].data_ptr()
         lib = _lib()
         with torch.cuda.device(dev):
-            rc = lib.ring_launch(
-                _KIND[kind], _DTYPE[dtype], _OP[combine], x.data_ptr(),
-                out.data_ptr(), own["recv"].data_ptr(),
-                right["recv"].data_ptr(), _ptr(own.get("srecv")),
-                _ptr(right.get("srecv")), own["flags"].data_ptr(),
-                right["flags"].data_ptr(), own["acks"].data_ptr(),
-                left["acks"].data_ptr(), self._status[rank].data_ptr(),
-                chunk, w, rank, own["nblocks"], seqs[rank] & 0xFFFFFFFF,
-                int(self.timeout * 1e9), stream.cuda_stream)
+            if kind == "allgather":
+                rc = lib.allgather_launch(
+                    x.data_ptr(), out.data_ptr(), own["peers"].data_ptr(),
+                    status, chunk, w, rank, own["nblocks"], seq, timeout_ns,
+                    stream.cuda_stream)
+            else:
+                rc = lib.ring_launch(
+                    _KIND[kind], _DTYPE[dtype], _OP[combine], x.data_ptr(),
+                    out.data_ptr(), own["recv"].data_ptr(),
+                    right["recv"].data_ptr(), _ptr(own.get("srecv")),
+                    _ptr(right.get("srecv")), own["flags"].data_ptr(),
+                    right["flags"].data_ptr(), own["acks"].data_ptr(),
+                    left["acks"].data_ptr(), status, chunk, w, rank,
+                    own["nblocks"], seq, timeout_ns, stream.cuda_stream)
         if rc != 0:
             self.broken = f"rank {rank}'s ring {kind} did not launch"
             raise RuntimeError(f"ring {kind} launch failed: "
@@ -436,7 +495,7 @@ class _PallasOps:
             return self._post_plain(rank, sig, x, out, allgather_plain)
         self._validate(rank, "allgather", "add", x)
         self._register(rank, sig)
-        self._launch(rank, "allgather", "add", x, out, b, w - 1)
+        self._launch(rank, "allgather", "add", x, out, b, 0)
         ALLGATHER_LAUNCHES += 1
         return out
 
@@ -488,12 +547,11 @@ class _PallasOps:
                 raise TimeoutError(f"{self.broken} ({self.timeout} s)")
             return
         self.streams[rank].synchronize()
-        waited, hop, block, call = self._status[rank].tolist()
-        if waited:
-            peer = (rank - 1) % w if waited == 1 else (rank + 1) % w
-            self.broken = (f"rank {rank}'s ring call {call} waited more than "
-                           f"{self.timeout} s at hop {hop} (block {block}) "
-                           f"for {_WAITED[waited]} rank {peer}")
+        status = self._status[rank].tolist()
+        if status[0]:
+            _, what = describe_wait(rank, w, status)
+            self.broken = (f"rank {rank}'s collective waited more than "
+                           f"{self.timeout} s for {what}")
             raise TimeoutError(self.broken)
 
     def close(self):

@@ -6,10 +6,10 @@ q, k, v [B, T, H, D], K and V in blocks, an online softmax with f32
 running max, denominator and accumulator, the causal scan stopping at the
 last block a query tile can see, NEG_INF = −1e30 for masked scores, p cast
 to v's dtype before the p·V product, and o / l with an l > 0 guard. It
-reads q, k and v through their strides, so views into one qkv tensor need
-no copy (the reference transposes to [B·H, T, D] first). It sits at the
-ridge of the roofline at GPT-2's shape; the source's header has the
-design.
+reads q, k and v through their strides (in bf16 by TMA, through tensor
+maps over those strides), so views into one qkv tensor need no copy (the
+reference transposes to [B·H, T, D] first). It sits at the ridge of the
+roofline at GPT-2's shape; the source's header has the design.
 
 `flash_attention_fwd` launches the kernel for CUDA tensors and raises on
 what it does not take; CPU tensors go to `flash_attention_plain`, the
@@ -129,55 +129,75 @@ def _kernel():
     return lib
 
 
+def check_kernel_args(shapes, dtypes, strides, ptrs, block_k, scale):
+    """Raises on what the CUDA kernel does not take. A pure function of the
+    shapes, dtypes, element strides and data pointers of q, k, v (in that
+    order), the key block and the scale: one [B, T, H, D] shape and one
+    dtype, the last dim contiguous; min(block_k, T) = 128 and dividing T;
+    bf16 with D = 64 and a positive scale, q, k and v 16-byte aligned with
+    every stride a multiple of 16 bytes (the conditions of the TMA loads);
+    or f32 with D <= 128."""
+    shape = tuple(shapes[0])
+    if len(shape) != 4 or any(tuple(x) != shape for x in shapes):
+        raise ValueError(f"flash_attention: q, k, v shapes "
+                         f"{[tuple(x) for x in shapes]} must be one "
+                         "[B, T, H, D] shape")
+    if dtypes[0] not in (torch.bfloat16, torch.float32) or \
+            any(x != dtypes[0] for x in dtypes):
+        raise TypeError(f"flash_attention: q, k, v must all be bfloat16 or "
+                        f"all float32, got {list(dtypes)}")
+    b, t, h, d = shape
+    if b * t * h * d == 0:
+        raise ValueError(f"flash_attention: empty input {shape}")
+    bk = min(block_k, t)
+    if bk != _BLOCK_K or t % bk:
+        raise ValueError(f"flash_attention: block_k {bk} must be {_BLOCK_K} "
+                         f"and divide T = {t}")
+    if d > 1 and any(st[3] != 1 for st in strides):
+        raise ValueError("flash_attention: the last dim of q, k, v must be "
+                         "contiguous")
+    if dtypes[0] == torch.float32:
+        if d > _F32_MAX_HEAD_DIM:
+            raise ValueError(f"flash_attention: f32 head dim {d} must be at "
+                             f"most {_F32_MAX_HEAD_DIM}")
+        return
+    if d != _BF16_HEAD_DIM:
+        raise ValueError(f"flash_attention: bf16 head dim {d} must be "
+                         f"{_BF16_HEAD_DIM}")
+    if not scale > 0:
+        raise ValueError(f"flash_attention: bf16 scale {scale} must be "
+                         "positive")
+    if any(p % 16 for p in ptrs):
+        raise ValueError("flash_attention: bf16 q, k, v must start 16-byte "
+                         "aligned (TMA)")
+    if any(x * 2 % 16 for st in strides for x in st[:3]):
+        raise ValueError("flash_attention: bf16 strides of q, k, v must be "
+                         "multiples of 16 bytes (TMA)")
+
+
 def flash_attention_fwd(q, k, v, causal, scale, block_q, block_k):
     """The flash forward on [B, T, H, D]. CPU tensors take the plain
-    version. CUDA tensors launch the kernel: q, k, v of one shape and
-    dtype on one device, the last dim contiguous; bf16 with D = 64 and
-    16-byte aligned rows, or f32 with D <= 128; min(block_k, T) = 128 and
-    dividing T. Anything else raises. block_q
-    is the reference's Q tiling; it does not change the result, and the
-    kernel tiles Q its own way."""
+    version. CUDA tensors launch the kernel, on one device and within
+    `check_kernel_args`; anything else raises. block_q is the reference's
+    Q tiling; it does not change the result, and the kernel tiles Q its
+    own way."""
     global LAUNCHES
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, scale, block_q,
                                      block_k)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)} must be one "
-                         "[B, T, H, D] shape")
-    if q.dtype not in (torch.bfloat16, torch.float32) or \
-            k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: q, k, v must all be bfloat16 or "
-                        f"all float32, got {q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k, v must be on one device")
+    qkv = (q, k, v)
+    check_kernel_args([x.shape for x in qkv], [x.dtype for x in qkv],
+                      [x.stride() for x in qkv],
+                      [x.data_ptr() for x in qkv], block_k, scale)
     b, t, h, d = q.shape
     bk = min(block_k, t)
-    if bk != _BLOCK_K or t % bk:
-        raise ValueError(f"flash_attention: block_k {bk} must be {_BLOCK_K} "
-                         f"and divide T = {t}")
     bf16 = q.dtype == torch.bfloat16
-    if bf16 and d != _BF16_HEAD_DIM:
-        raise ValueError(f"flash_attention: bf16 head dim {d} must be "
-                         f"{_BF16_HEAD_DIM}")
-    if not bf16 and d > _F32_MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: f32 head dim {d} must be at "
-                         f"most {_F32_MAX_HEAD_DIM}")
-    if q.numel() == 0:
-        raise ValueError(f"flash_attention: empty input {tuple(q.shape)}")
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-    strides = []
-    for x in (q, k, v, out):
-        if x.stride(3) != 1 and d > 1:
-            raise ValueError("flash_attention: the last dim of q, k, v "
-                             "must be contiguous")
-        strides += [x.stride(0), x.stride(1), x.stride(2)]
-    if bf16 and any(x.data_ptr() % 16 or any(s % 8 for s in strides)
-                    for x in (q, k, v)):
-        raise ValueError("flash_attention: bf16 rows of q, k, v must be "
-                         "16-byte aligned")
+    strides = [s for x in (*qkv, out) for s in x.stride()[:3]]
     lib = _kernel()
     st = (ctypes.c_longlong * 12)(*strides)
     with torch.cuda.device(q.device):

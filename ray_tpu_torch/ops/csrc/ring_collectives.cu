@@ -8,16 +8,17 @@
 //   ring_reducescatter  <- _make_reducescatter_kernel (B6): the reduce
 //                          phase only, SUM, delta = -1 (rank r ends with
 //                          reduced chunk r);
-//   ring_allgather      <- _make_allgather_kernel (B7): relay ring;
+//   direct_allgather    <- _make_allgather_kernel (B7): not a ring on
+//                          this card, see below;
 //   ring_allreduce_q    <- _make_quantized_allreduce_kernel (B8): the
 //                          EQuARX int8 ring (each reduce hop re-quantizes
 //                          the partial to int8 + one f32 scale per 256
 //                          values; the gather quantizes once and relays
 //                          the same bytes).
-// Each rank of a group launches its kernel on its own stream; rank r
-// stores into rank (r+1)'s receive slots and flags, and acknowledges into
-// rank (r-1)'s. The ranks may share one card or sit on several cards with
-// peer access; the code is the same.
+// Each rank of a group launches its kernel on its own stream; in the three
+// ring kernels rank r stores into rank (r+1)'s receive slots and flags,
+// and acknowledges into rank (r-1)'s. The ranks may share one card or sit
+// on several cards with peer access; the code is the same.
 //
 // Bound: bytes. A combine is one operation per element against 8-12
 // bytes moved, so the least time is the bytes each rank must move through
@@ -69,9 +70,34 @@
 //   of 1.0 for an all-zero block; dequantize-and-combine is __fmul_rn then
 //   __fadd_rn. Build without --use_fast_math.
 // * Instances: f32 {add, max, min, mul}, bf16 add and int32 add for the
-//   allreduce; f32 add for the reduce-scatter and allgather (copy); f32
-//   {add, max} for the quantized ring. Any other combination returns
+//   allreduce; f32 add for the reduce-scatter; f32 {add, max} for the
+//   quantized ring; f32 for the allgather. Any other combination returns
 //   kErrUnsupported.
+//
+// The allgather (B7) is direct, not a ring. The TPU's ICI forced the
+// reference's relay; the port's ranks are all to all (one card, or cards
+// with peer access over NVLink), and a relay through hop slots moves
+// 5C elements a rank at w = 2 (11C at w = 4) where the bound counts
+// (w + 1)C: read x once, write w chunks. So each rank reads its x once and
+// stores it straight into slot r of every rank's output, its own and the
+// w - 1 peers': every element of every output is written once a call, the
+// reference's write-once rule by construction, with no hop slots and no
+// acknowledgements. The peers' output addresses are learned at run time
+// (one host thread launches the ranks in turn, so a peer's output does not
+// exist yet when a rank is launched): each rank publishes its call's
+// output address in its mailbox (the address, then a release store of the
+// call's sequence number), and a block acquires every peer's before it
+// stores. Block b then posts a done flag, per (source rank, block), to
+// each destination (release), and returns only when its own w - 1 done
+// flags for block b have arrived; so neither a rank's output nor its
+// mailbox is reused by its next call while a peer still writes. Rank p's
+// mailbox and done flags reach the kernel through a device table of
+// addresses, [2][w], made once per buffer class (no world-size limit).
+// One round of flags a call replaces the relay's w - 1 round trips. Each
+// thread keeps 4 16-byte loads in flight, then stores them once to each
+// destination, its own first; loads and stores are streaming (evict-first),
+// since no byte is touched twice. The spins are bounded as above and record
+// (what, which rank, block, call) in the status words.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,14 +106,18 @@
 
 namespace {
 
-enum Kind { kAllreduce = 0, kReduceScatter = 1, kAllgather = 2, kQuantized = 3 };
+enum Kind { kAllreduce = 0, kReduceScatter = 1, kQuantized = 3 };
 enum DType { kF32 = 0, kBF16 = 1, kI32 = 2 };
 enum Op { kAdd = 0, kMax = 1, kMin = 2, kMul = 3 };
-enum Waited { kWaitedData = 1, kWaitedAck = 2 };
+// what a timed-out block waited for (status word 0); word 1 is the relay's
+// hop for the first two and the awaited rank for the last two
+enum Waited { kWaitedData = 1, kWaitedAck = 2, kWaitedMail = 3,
+              kWaitedDone = 4 };
 
 constexpr int kThreads = 512;   // exact kernels: elements per block pass
 constexpr int kQThreads = 256;  // quantized: 8 warps, a quant block each
 constexpr int kQuantBlock = 256;
+constexpr int kGatherUnroll = 4;  // 16-byte loads in flight a thread
 constexpr int kErrUnsupported = 10000;
 
 struct RingArgs {
@@ -126,26 +156,37 @@ __device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
                :: "l"(p), "r"(v) : "memory");
 }
 
-// The block waits until *p reaches `want` (sequence numbers compare with
-// wrap-around). False, with the rank's status recorded, on timeout.
+// The calling thread waits until *p reaches `want` (sequence numbers
+// compare with wrap-around); false once the deadline has passed.
+__device__ bool spin_until(const unsigned* p, unsigned want,
+                           unsigned long long deadline) {
+  while (static_cast<int>(ld_acquire(p) - want) < 0) {
+    if (globaltimer() > deadline) return false;
+    __nanosleep(64);
+  }
+  return true;
+}
+
+// Records a timed-out wait in the rank's status words, once a kernel:
+// what, where (hop or rank), block, call.
+__device__ void record_timeout(int* status, int waited, int where,
+                               unsigned seq) {
+  if (atomicCAS(status, 0, waited) == 0) {
+    status[1] = where;
+    status[2] = blockIdx.x;
+    status[3] = static_cast<int>(seq);
+  }
+}
+
+// The block waits until *p reaches `want`. False, with the rank's status
+// recorded, on timeout.
 __device__ bool block_wait(const RingArgs& a, const unsigned* p,
                            unsigned want, int waited, int hop,
                            unsigned long long deadline, int* ok) {
   __syncthreads();  // every thread has read the previous wait's *ok
   if (threadIdx.x == 0) {
-    int good = 1;
-    while (static_cast<int>(ld_acquire(p) - want) < 0) {
-      if (globaltimer() > deadline) {
-        good = 0;
-        break;
-      }
-      __nanosleep(64);
-    }
-    if (!good && atomicCAS(a.status, 0, waited) == 0) {
-      a.status[1] = hop;
-      a.status[2] = blockIdx.x;
-      a.status[3] = static_cast<int>(a.seq);
-    }
+    const int good = spin_until(p, want, deadline);
+    if (!good) record_timeout(a.status, waited, hop, a.seq);
     *ok = good;
   }
   __syncthreads();
@@ -392,41 +433,132 @@ __global__ void __launch_bounds__(kThreads) ring_reducescatter(RingArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// B7: relay ring allgather; out is [w][chunk]
+// B7: direct allgather; out is [w][chunk] (see the header)
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads) ring_allgather(RingArgs a) {
-  __shared__ int ok;
+struct GatherArgs {
+  const float* x;
+  float* out;
+  // [2][world] addresses: rank p's mailbox (u64 output address, then the
+  // u32 sequence number of the call that published it), then rank p's
+  // done flags ([world][nblocks] u32, set by the source ranks)
+  const unsigned long long* peers;
+  int* status;
+  long long chunk;
+  int world, rank, vec;
+  unsigned seq;
+  unsigned long long timeout_ns;
+};
+
+__device__ __forceinline__ unsigned long long ld_relaxed_u64(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.sys.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Streaming (evict-first) accesses: the allgather touches each byte once,
+// so it keeps none of them in L2.
+template <int V>
+__device__ __forceinline__ Vec<float, V> load_cs(const float* p) {
+  Vec<float, V> out;
+  if constexpr (V == 4) {
+    const float4 raw = __ldcs(reinterpret_cast<const float4*>(p));
+    memcpy(&out, &raw, 16);
+  } else {
+    static_assert(V == 1, "4- or 16-byte accesses");
+    out.v[0] = __ldcs(p);
+  }
+  return out;
+}
+
+template <int V>
+__device__ __forceinline__ void store_cs(float* p, const Vec<float, V>& v) {
+  if constexpr (V == 4) {
+    float4 raw;
+    memcpy(&raw, &v, 16);
+    __stcs(reinterpret_cast<float4*>(p), raw);
+  } else {
+    static_assert(V == 1, "4- or 16-byte accesses");
+    __stcs(p, v.v[0]);
+  }
+}
+
+// The block's slice [lo, hi) of x into slot `off` of every destination:
+// U loads of V floats in flight a thread, then one store a destination.
+template <int V, int U>
+__device__ void scatter(const float* x, const unsigned long long* dst,
+                        int w, int first, long long off, long long lo,
+                        long long hi) {
+  const long long step = static_cast<long long>(blockDim.x) * V;
+  for (long long i0 = lo + static_cast<long long>(threadIdx.x) * V; i0 < hi;
+       i0 += step * U) {
+    Vec<float, V> v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (i0 + u * step < hi) v[u] = load_cs<V>(x + i0 + u * step);
+    for (int k = 0, d = first; k < w; ++k, d = d + 1 == w ? 0 : d + 1) {
+      float* o = reinterpret_cast<float*>(dst[d]) + off;
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (i0 + u * step < hi) store_cs<V>(o + i0 + u * step, v[u]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) direct_allgather(GatherArgs a) {
+  extern __shared__ unsigned long long dst[];  // [w] output addresses
   const int w = a.world, r = a.rank;
   const long long C = a.chunk;
   long long lo, hi;
   slice(C, &lo, &hi);
-  if (lo >= hi) return;
-  const float* x = static_cast<const float*>(a.x);
-  float* out = static_cast<float*>(a.out);
-  if (w == 1) {
-    hop<float, kAdd>(a, nullptr, x, nullptr, out, lo, hi);
-    return;
-  }
+  if (lo >= hi) return;  // the same on every rank
   const unsigned long long deadline = globaltimer() + a.timeout_ns;
-  if (!block_wait(a, flag(a.acks, 0), a.seq - 1, kWaitedAck, 0, deadline,
-                  &ok))
-    return;
-  hop<float, kAdd>(a, nullptr, x, slot<float>(a.recv_right, 0, C),
-                   out + r * C, lo, hi);
-  block_post(a, flag(a.flags_right, 0), nullptr);
-  for (int s = 1; s < w; ++s) {
-    const bool last = s == w - 1;
-    if (!block_wait(a, flag(a.flags, s - 1), a.seq, kWaitedData, s - 1,
-                    deadline, &ok) ||
-        (!last && !block_wait(a, flag(a.acks, s), a.seq - 1, kWaitedAck, s,
-                              deadline, &ok)))
-      return;
-    hop<float, kAdd>(a, slot<float>(a.recv, s - 1, C), nullptr,
-                     last ? nullptr : slot<float>(a.recv_right, s, C),
-                     out + mod(r - s, w) * C, lo, hi);
-    block_post(a, last ? nullptr : flag(a.flags_right, s),
-               flag(a.acks_left, s - 1));
+  const unsigned long long* const* mail =
+      reinterpret_cast<const unsigned long long* const*>(a.peers);
+  if (threadIdx.x == 0) {  // publish this call's output address
+    unsigned long long* own = const_cast<unsigned long long*>(mail[r]);
+    own[0] = reinterpret_cast<unsigned long long>(a.out);
+    st_release(reinterpret_cast<unsigned*>(own + 1), a.seq);
+  }
+  // every peer's output address: thread p waits for rank p's mailbox
+  int good = 1, aligned = 1;
+  for (int p = threadIdx.x; p < w; p += blockDim.x) {
+    unsigned long long addr = reinterpret_cast<unsigned long long>(a.out);
+    if (p != r) {
+      if (good && spin_until(reinterpret_cast<const unsigned*>(mail[p] + 1),
+                             a.seq, deadline)) {
+        addr = ld_relaxed_u64(mail[p]);
+      } else {
+        if (good) record_timeout(a.status, kWaitedMail, p, a.seq);
+        good = 0;
+      }
+    }
+    dst[p] = addr;
+    aligned &= addr % 16 == 0;
+  }
+  if (!__syncthreads_and(good)) return;
+  const long long off = static_cast<long long>(r) * C;
+  if (__syncthreads_and(aligned) && a.vec)
+    scatter<4, kGatherUnroll>(a.x, dst, w, r, off, lo, hi);
+  else
+    scatter<1, kGatherUnroll>(a.x, dst, w, r, off, lo, hi);
+  __syncthreads();
+  // done flags: this block's slice has landed in rank p's output
+  unsigned* const* done = reinterpret_cast<unsigned* const*>(a.peers + w);
+  for (int p = threadIdx.x; p < w; p += blockDim.x) {
+    if (p == r) continue;
+    __threadfence_system();
+    st_release(done[p] + r * gridDim.x + blockIdx.x, a.seq);
+  }
+  // return once every peer's block b has landed its slice here
+  for (int p = threadIdx.x; p < w; p += blockDim.x) {
+    if (p == r) continue;
+    if (!spin_until(done[r] + p * gridDim.x + blockIdx.x, a.seq, deadline)) {
+      record_timeout(a.status, kWaitedDone, p, a.seq);
+      break;
+    }
   }
 }
 
@@ -588,10 +720,9 @@ int launch(K kernel, int threads, int nblocks, const RingArgs& a,
 extern "C" {
 
 // One ring collective of one rank, on `stream`; does not synchronise.
-// kind: 0 allreduce, 1 reduce-scatter, 2 allgather, 3 quantized
-// allreduce. dtype: 0 f32, 1 bf16, 2 int32. op: 0 add, 1 max, 2 min,
-// 3 mul. chunk: elements of one of the w chunks of x (the allgather's x
-// is one chunk and out w). The slot, flag and ack buffers are the
+// kind: 0 allreduce, 1 reduce-scatter, 3 quantized allreduce. dtype:
+// 0 f32, 1 bf16, 2 int32. op: 0 add, 1 max, 2 min, 3 mul. chunk: elements
+// of one of the w chunks of x. The slot, flag and ack buffers are the
 // group's, laid out as RingArgs says; every rank of a call passes the
 // same chunk, nblocks and seq. Returns the cudaError_t of the launch, or
 // kErrUnsupported for an instance that is not built.
@@ -632,8 +763,6 @@ int ring_launch(int kind, int dtype, int op, const void* x, void* out,
   if (dtype != kF32) return kErrUnsupported;
   if (kind == kReduceScatter && op == kAdd)
     return launch(ring_reducescatter, kThreads, nblocks, a, s);
-  if (kind == kAllgather)
-    return launch(ring_allgather, kThreads, nblocks, a, s);
   if (kind == kQuantized) {
     if (chunk % kQuantBlock != 0 || !a.vec)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -643,6 +772,35 @@ int ring_launch(int kind, int dtype, int op, const void* x, void* out,
       return launch(ring_allreduce_q<kMax>, kQThreads, nblocks, a, s);
   }
   return kErrUnsupported;
+}
+
+// One direct allgather (B7) of one rank, on `stream`; does not
+// synchronise. x: the rank's f32 [chunk]; out: its [world][chunk]; peers:
+// the group's device table of [2][world] addresses (every rank's mailbox,
+// then every rank's [world][nblocks] done flags), as GatherArgs says.
+// Every rank of a call passes the same chunk, nblocks and seq. Returns the
+// cudaError_t of the launch.
+int allgather_launch(const float* x, float* out,
+                     const unsigned long long* peers, int* status,
+                     long long chunk, int world, int rank, int nblocks,
+                     unsigned seq, unsigned long long timeout_ns,
+                     void* stream) {
+  if (chunk <= 0 || world < 1 || rank < 0 || rank >= world || nblocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  GatherArgs a{x, out, peers, status, chunk, world, rank, 0, seq,
+               timeout_ns};
+  a.vec = ((reinterpret_cast<uintptr_t>(x) |
+            reinterpret_cast<uintptr_t>(out)) % 16 == 0) && chunk % 4 == 0;
+  const size_t smem = sizeof(unsigned long long) * world;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        direct_allgather, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  direct_allgather<<<nblocks, kThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Lets the current device's kernels store into `peer`'s memory (ranks on

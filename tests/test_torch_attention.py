@@ -211,3 +211,61 @@ def test_gpu_check_of_flash_flags_small_faults(fault):
         got = _cast_p_attention(q, k, v, scale, visible)
     err = cs.flash_err(got, want)
     assert (err <= cs.FLASH_TOL) == (fault == "f32-noise"), err
+
+
+# The CUDA wrapper's argument checks, as pure data: GPT-2's q, k, v as
+# views into one qkv tensor [B, T, 3·H·D] (element strides, byte pointers).
+_GPT2 = {"shapes": [(12, 1024, 12, 64)] * 3,
+         "dtypes": [torch.bfloat16] * 3,
+         "strides": [(1024 * 2304, 2304, 64, 1)] * 3,
+         "ptrs": [1 << 20, (1 << 20) + 1536, (1 << 20) + 3072],
+         "block_k": 128, "scale": 0.125}
+
+
+def _with(**changes):
+    return {**_GPT2, **changes}
+
+
+@pytest.mark.parametrize("args,match", [
+    (_with(ptrs=[(1 << 20) + 2, (1 << 20) + 1536, (1 << 20) + 3072]),
+     "16-byte aligned"),
+    (_with(strides=[(1025 * 2304, 2305, 64, 1)] * 3), "multiples of 16"),
+    (_with(shapes=[(12, 1024, 12, 32)] * 3,
+           strides=[(1024 * 1152, 1152, 32, 1)] * 3), "head dim 32"),
+    (_with(shapes=[(12, 1000, 12, 64)] * 3), "divide T = 1000"),
+    (_with(scale=-0.125), "positive"),
+    (_with(dtypes=[torch.bfloat16, torch.float32, torch.bfloat16]),
+     "all be bfloat16"),
+    (_with(strides=[(1024 * 2304, 2304, 1, 12)] * 3), "contiguous"),
+], ids=["misaligned-base", "odd-row-stride", "bf16-d32", "t-1000",
+        "negative-scale", "mixed-dtypes", "last-dim-strided"])
+def test_kernel_args_refuse_what_the_kernel_does_not_take(args, match):
+    with pytest.raises((ValueError, TypeError), match=match):
+        tatt.check_kernel_args(**args)
+
+
+@pytest.mark.parametrize("args", [
+    _GPT2,
+    _with(shapes=[(2, 256, 12, 64)] * 3, dtypes=[torch.float32] * 3,
+          strides=[(256 * 2304, 2304, 64, 1)] * 3,
+          ptrs=[4, 8, 12]),  # f32: no TMA, so no alignment condition
+], ids=["gpt2-bf16-qkv-views", "f32"])
+def test_kernel_args_take_the_main_path_shapes(args):
+    tatt.check_kernel_args(**args)
+
+
+def test_gpu_build_check_reads_registers_and_spills():
+    """chip_smoke.py's build phase fails the run on a ptxas spill in the
+    flash or ring kernels: its parser reads each kernel's registers, static
+    shared memory and spill bytes from nvcc -Xptxas -v."""
+    log = "\n".join([
+        "ptxas info    : Function properties for _Z4tiledv",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 122 registers, used 1 barriers, 16 bytes smem",
+        "ptxas info    : Function properties for _Z5spillyv",
+        "    16 bytes stack frame, 16 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers"])
+    table = _chip_smoke()._ptxas_table(log)
+    assert sorted(table.values(), key=lambda v: v["registers"]) == [
+        {"spill_stores": 0, "spill_loads": 0, "registers": 122, "smem": 16},
+        {"spill_stores": 16, "spill_loads": 8, "registers": 168, "smem": 0}]

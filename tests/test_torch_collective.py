@@ -354,3 +354,35 @@ def test_mismatched_calls_raise():
         hs[0].allreduce(torch.ones(4))
         with pytest.raises(ValueError, match="same collective calls"):
             hs[1].allreduce(torch.ones(100))
+
+
+@pytest.mark.parametrize("w", [2, 3, 4])
+def test_timeout_status_names_the_awaited_rank(w):
+    """The status words [waited, where, block, call] of a timed-out kernel
+    name the rank it waited for: the left neighbour's data or the right
+    neighbour's acknowledgement in the ring kernels, and any peer's output
+    address (mailbox) or done flag in the direct allgather."""
+    from ray_tpu_torch.collective.backends import pallas_backend as pb
+
+    for rank in range(w):
+        peer, what = pb.describe_wait(rank, w, [pb.WAITED_DATA, 1, 3, 7])
+        assert peer == (rank - 1) % w
+        assert what == f"data from rank {peer} at hop 1 (call 7, block 3)"
+        peer, what = pb.describe_wait(rank, w, [pb.WAITED_ACK, 0, 0, 2])
+        assert peer == (rank + 1) % w and f"of rank {peer} at hop 0" in what
+        for other in set(range(w)) - {rank}:
+            for waited, text in ((pb.WAITED_MAIL, "output address"),
+                                 (pb.WAITED_DONE, "done flag")):
+                peer, what = pb.describe_wait(rank, w,
+                                              [waited, other, 5, 9])
+                assert peer == other
+                assert what == (f"the {text} of rank {other} "
+                                "(call 9, block 5)")
+
+
+def test_allgather_plain_writes_every_payload_to_every_rank():
+    from ray_tpu_torch.collective.backends import pallas_backend as pb
+
+    xs = [torch.arange(5, dtype=torch.float32) + 10 * r for r in range(3)]
+    for out in pb.allgather_plain(xs):
+        assert torch.equal(out, torch.stack(xs))
