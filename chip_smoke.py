@@ -37,12 +37,15 @@ ring kernels. Each phase prints one JSON line:
    plain version on its own inputs.
 7. train_gpt2: the GPT-2 main path, with the raw-loop control, tokens/s
    and the launches per step.
-8. collectives (run after kernels): the ring collectives B5-B8 against
-   their plain versions, bit for bit, at w = 2, 3, 4 ranks on the card
-   (one stream each), at 4096 f32 (16 KB), 16 MB, a ragged 10,007 and
-   GPT-2's gradient bucket (w = 2); every op and dtype the kernels are
-   built for; 200 back-to-back calls of each kernel with a random skew a
-   rank; a withheld rank that must raise TimeoutError; times of one call
+8. collectives (run after kernels): the collective kernels B5-B8 (B5-B7
+   direct, B8 a ring) against their plain versions, which run the
+   reference's ring schedule, bit for bit, at w = 2, 3, 4 ranks on the
+   card (one stream each), at 4096 f32 (16 KB), 16 MB, a ragged 10,007
+   and GPT-2's gradient bucket (every kernel at w = 2; the f32 allreduce
+   add, the reduce-scatter and the allgather at w = 3 and 4 too); every
+   op and dtype the kernels are built for; 200 back-to-back calls of each
+   kernel with a random skew a rank; a withheld rank that must raise
+   TimeoutError naming it (B5, B6, B7 at w = 2, 3, 4); times of one call
    (every rank's kernel) beside the bound and one PyTorch call over the
    ranks' tensors.
 9. train_gpt2_dp: GPT-2 124M through Trainer(num_workers=2,
@@ -929,14 +932,20 @@ def _ring_cases(w):
     size: each payload padded as the collective layer pads it on the main
     path (allreduce and allgather to _bucket(n); the reduce-scatter to the
     sharded layout, padded_numel; the quantized ring to _qring_pad). GPT-2's
-    bucket: every kernel at w = 2, the allgather at every w."""
+    bucket: every kernel at w = 2; the f32 allreduce add, the
+    reduce-scatter and the allgather at every w."""
     from ray_tpu_torch.collective.backends import device_backend as db
     from ray_tpu_torch.train import sharding
 
     cases = []
     if w != 2:
-        cases.append(("allgather", "add", torch.float32, db._bucket(
-            sharding.padded_numel(GPT2_NUMEL, w) // w), GPT2_NUMEL))
+        cases += [("allreduce", "add", torch.float32,
+                   w * -(-db._bucket(GPT2_NUMEL) // w), GPT2_NUMEL),
+                  ("reducescatter", "add", torch.float32,
+                   sharding.padded_numel(GPT2_NUMEL, w), GPT2_NUMEL),
+                  ("allgather", "add", torch.float32, db._bucket(
+                      sharding.padded_numel(GPT2_NUMEL, w) // w),
+                   GPT2_NUMEL)]
     for n in RING_SIZES + ((GPT2_NUMEL,) if w == 2 else ()):
         # the allreduce wrapper pads _bucket(n) to w chunks; so does this,
         # for the plain version
@@ -1035,10 +1044,11 @@ def _ring_bound(ops, kind, length, w, elt):
     """(bound ms, "bytes", basis) of one call. All ranks on one card: every
     rank's bytes through its one memory at PEAK_BYTES_S. Ranks on c cards:
     the larger of a card's share of those bytes at PEAK_BYTES_S and the
-    bytes a rank must send to its peers at NVLINK_BYTES_S (the allgather
-    its chunk to w - 1 peers; a ring allreduce 2(w - 1)/w of its payload,
-    the reduce-scatter half that; the int8 ring a quarter of those bytes
-    and its scales)."""
+    bytes that must leave a rank's card at NVLINK_BYTES_S (the allgather
+    its chunk to w - 1 peers; the allreduce 2(w - 1)/w of its payload:
+    its reduced chunk to w - 1 peers and the w - 1 chunks of its input
+    that they read; the reduce-scatter half that; the int8 ring a quarter
+    of those bytes and its scales)."""
     cards = len({d.index for d in ops.devices})
     t_mem = _ring_bytes(kind, length, w, elt) / cards / PEAK_BYTES_S
     if cards == 1:
@@ -1154,7 +1164,7 @@ def _withhold(dev, kind, w):
     handles = [col.init_collective_group(w, r, group_name=name,
                                          timeout=RING_TIMEOUT_S)
                for r in range(w)]
-    x = torch.ones(4096, device=dev)
+    x = torch.ones(12288, device=dev)  # splits evenly over 2, 3, 4 ranks
     cur = torch.cuda.current_stream()
     t0 = time.perf_counter()
     for h in handles[:-1]:
@@ -1182,13 +1192,13 @@ def _withhold(dev, kind, w):
 
 
 def _timeout_check(dev):
-    """The withheld rank, for the allreduce at w = 2 and the allgather at
-    w = 2, 3, 4; then a new group works."""
+    """The withheld rank, for the allreduce, the reduce-scatter and the
+    allgather at w = 2, 3, 4; then a new group works."""
     from ray_tpu_torch import collective as col
 
-    cases = {"allreduce w=2": _withhold(dev, "allreduce", 2),
-             **{f"allgather w={w}": _withhold(dev, "allgather", w)
-                for w in RING_WORLDS}}
+    cases = {f"{kind} w={w}": _withhold(dev, kind, w)
+             for kind in ("allreduce", "reducescatter", "allgather")
+             for w in RING_WORLDS}
     x = torch.ones(4096, device=dev)
     handles = [col.init_collective_group(2, r, group_name="after",
                                          timeout=RING_TIMEOUT_S)
@@ -1313,6 +1323,12 @@ def _ring_launches():
             "ring_allreduce_q": pb.QUANTIZED_LAUNCHES}
 
 
+# the collective kernels' names in a profiler trace (csrc
+# ring_collectives.cu)
+COLLECTIVE_KERNEL_NAMES = ("direct_reduce", "direct_allgather",
+                           "ring_allreduce_q")
+
+
 def _flat_params(model):
     return torch.cat([p.detach().reshape(-1).cpu() for p in
                       model.parameters()])
@@ -1345,7 +1361,8 @@ def _dp_run(params, label, **kwargs):
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.device_time_total for e in kernels)
-    ring = sum(e.device_time_total for e in kernels if "ring_" in e.name)
+    ring = sum(e.device_time_total for e in kernels
+               if any(k in e.name for k in COLLECTIVE_KERNEL_NAMES))
     models = [w.operator.model for w in trainer.workers]
     ranks_identical = all(torch.equal(a, b.to(a.device)) for a, b in zip(
         models[0].parameters(), models[1].parameters()))

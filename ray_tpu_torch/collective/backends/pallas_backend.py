@@ -1,17 +1,17 @@
-"""Transport.PALLAS: the fused ring collectives as hand-written CUDA
-kernels; port of ray_tpu/collective/backends/pallas_backend.py.
+"""Transport.PALLAS: the fused collectives as hand-written CUDA kernels;
+port of ray_tpu/collective/backends/pallas_backend.py.
 
 The JAX package fuses each ring collective's whole schedule (combine,
 remote DMA to the ring neighbour, wait, relay) into one `pallas_call`.
 Here each op is one CUDA kernel a rank (`ops/csrc/ring_collectives.cu`):
 
-  allreduce            <- _make_allreduce_kernel (B5)
-  reducescatter_even   <- _make_reducescatter_kernel (B6)
-  allgather            <- _make_allgather_kernel (B7)
-  allreduce_quantized  <- _make_quantized_allreduce_kernel (B8)
+  allreduce            <- _make_allreduce_kernel (B5), direct
+  reducescatter_even   <- _make_reducescatter_kernel (B6), direct
+  allgather            <- _make_allgather_kernel (B7), direct
+  allreduce_quantized  <- _make_quantized_allreduce_kernel (B8), a ring
 
-Ring schedule (w ranks, each rank's flat payload cut into w chunks of C
-elements), as the reference:
+The reference's ring schedule (w ranks, each rank's flat payload cut into
+w chunks of C elements), which the plain versions below run hop by hop:
 
   reduce-scatter: acc := own chunk; for s in 1..w-1: [quantize acc ->]
       send to the right neighbour's slot for this hop, receive the left
@@ -22,26 +22,30 @@ elements), as the reference:
       bytes, each rank writing the received chunk into its output, so
       that in the quantized ring every rank dequantizes identical data.
 
-The allgather is not a ring here: the reference's relay follows the TPU's
-ring ICI, while the port's ranks reach each other all to all (one card,
-or cards with peer access). Each rank stores its payload straight into
-slot r of every rank's output, and learns the peers' output addresses of
-the call from their mailboxes (csrc header). Its result is the same
-bytes.
+Only the quantized ring keeps those hops on the card (each re-quantizes
+its partial). The reference's rings follow the TPU's ICI, while the
+port's ranks reach each other all to all (one card, or cards with peer
+access), so the exact collectives are direct, with the ring's results:
+rank r folds chunk r itself from every rank's input, in the order the
+ring combines it (allreduce: x_r, x_{r+1}, ..., x_{r+w-1}, into chunk r
+of every rank's output; reduce-scatter: x_{r+1}, ..., x_r, into its own
+output), and the allgather stores each rank's payload straight into slot
+r of every output. A rank learns the peers' input and output addresses of
+the call from their mailboxes (csrc header).
 
 Every rank of a group lives in this process. `_PallasOps` is the group's
 rendezvous: each rank's device (rank r on cuda:(r % device_count)), its
 stream, its status words, the slot, flag and acknowledgement buffers of
-every (op, dtype, chunk) class (the allgather's: mailboxes, done flags and
-a device table of their addresses), and the calls' sequence numbers. A rank's
-kernel runs on the rank's stream, which must be the current stream when
-the rank calls: its blocks spin until the peers' kernels, on their own
-streams, have sent their data, so two ranks on one stream would wait on
-each other forever (until the timeout). The ring kernel of a call
-finishes only once every rank has launched its own, and the ranks are
-driven by one host thread; so nothing here waits on the host, and the
-caller must not either before every rank has made the call (the trainer
-steps its ranks in lockstep).
+every (op, dtype, chunk) class (the direct kernels': mailboxes, done
+flags and a device table of their addresses), and the calls' sequence
+numbers. A rank's kernel runs on the rank's stream, which must be the
+current stream when the rank calls: its blocks spin until the peers'
+kernels, on their own streams, have published their buffers or sent
+their data, so two ranks on one stream would wait on each other forever
+(until the timeout). A rank's kernel of a call finishes only once every
+rank has launched its own, and the ranks are driven by one host thread;
+so nothing here waits on the host, and the caller must not either before
+every rank has made the call (the trainer steps its ranks in lockstep).
 
 Each wrapper takes its plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors, or raises; there is no other path. On the CPU
@@ -51,9 +55,9 @@ over all ranks' inputs. `check(rank)` is where a rank's calls are known
 to be complete: it waits for the rank's stream and raises TimeoutError,
 naming the rank waited for, if one of its kernels gave up waiting for a
 peer (or, on the CPU, if a call still lacks a rank after the timeout).
-The plain versions run the same schedule over the w ranks' tensors, hop
-by hop, in the same combine order; `chip_smoke.py` holds every kernel
-against them bit for bit.
+The plain versions run the reference's schedule over the w ranks'
+tensors, hop by hop; `chip_smoke.py` holds every kernel against them bit
+for bit, and the CPU tests hold the direct fold order against them.
 """
 
 from __future__ import annotations
@@ -91,7 +95,7 @@ _COMBINE_FNS = {"add": torch.add, "max": torch.maximum,
 
 # csrc codes, and the instances the source builds (chip_smoke.py holds
 # each against its plain version on the card)
-_KIND = {"allreduce": 0, "reducescatter": 1, "quantized": 3}
+_KIND = {"allreduce": 0, "reducescatter": 1, "allgather": 2}
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 _OP = {"add": 0, "max": 1, "min": 2, "mul": 3}
 _BUILT = {("allreduce", torch.float32, c) for c in _OP} | {
@@ -101,6 +105,7 @@ _BUILT = {("allreduce", torch.float32, c) for c in _OP} | {
     ("quantized", torch.float32, "add"), ("quantized", torch.float32, "max")}
 # what a timed-out block waited for (csrc: Waited, status word 0)
 WAITED_DATA, WAITED_ACK, WAITED_MAIL, WAITED_DONE = 1, 2, 3, 4
+WAITED_ADDRS = 5
 
 # A block's share of a chunk before the grid grows (elements; quant
 # blocks for the quantized ring): small payloads take few blocks, so few
@@ -159,8 +164,10 @@ def allgather_plain(xs: list[torch.Tensor]) -> list[torch.Tensor]:
 def describe_wait(rank: int, world: int, status) -> tuple[int, str]:
     """The rank that a timed-out kernel of `rank` waited for, and what it
     waited for, from the rank's status words [waited, where, block, call]
-    (where: the hop in the ring kernels, the awaited rank in the direct
-    allgather)."""
+    (where: the hop in the quantized ring, the awaited rank in the direct
+    kernels: the allgather's mailbox holds the output address it needs,
+    the allreduce's and reduce-scatter's the input and output
+    addresses)."""
     waited, where, block, call = (int(v) for v in status)
     if waited == WAITED_DATA:
         peer = (rank - 1) % world
@@ -168,10 +175,12 @@ def describe_wait(rank: int, world: int, status) -> tuple[int, str]:
     elif waited == WAITED_ACK:
         peer = (rank + 1) % world
         what = f"the acknowledgement of rank {peer} at hop {where}"
-    elif waited in (WAITED_MAIL, WAITED_DONE):
+    elif waited in (WAITED_MAIL, WAITED_DONE, WAITED_ADDRS):
         peer = where
-        what = (f"the output address of rank {peer}" if waited == WAITED_MAIL
-                else f"the done flag of rank {peer}")
+        what = {WAITED_MAIL: "the output address",
+                WAITED_DONE: "the done flag",
+                WAITED_ADDRS: "the input and output addresses"}[waited]
+        what = f"{what} of rank {peer}"
     else:
         raise ValueError(f"status {waited} names no wait")
     return peer, f"{what} (call {call}, block {block})"
@@ -208,26 +217,20 @@ def allreduce_quantized_plain(xs: list[torch.Tensor], op
 
 def _lib():
     lib = _build.load("ring_collectives")
-    if lib.ring_launch.argtypes is None:  # first use: C signatures
-        lib.ring_launch.argtypes = (
-            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 11
-            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-               ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p])
-        lib.ring_launch.restype = ctypes.c_int
-        lib.allgather_launch.argtypes = (
-            [ctypes.c_void_p] * 4
-            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-               ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p])
-        lib.allgather_launch.restype = ctypes.c_int
+    if lib.direct_launch.argtypes is None:  # first use: C signatures
+        tail = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p]
+        lib.direct_launch.argtypes = ([ctypes.c_int] * 3
+                                      + [ctypes.c_void_p] * 4 + tail)
+        lib.direct_launch.restype = ctypes.c_int
+        lib.quantized_launch.argtypes = ([ctypes.c_int]
+                                         + [ctypes.c_void_p] * 11 + tail)
+        lib.quantized_launch.restype = ctypes.c_int
         lib.ring_enable_peer_access.argtypes = [ctypes.c_int]
         lib.ring_enable_peer_access.restype = ctypes.c_int
         lib.ring_error_string.argtypes = [ctypes.c_int]
         lib.ring_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _ptr(t: torch.Tensor | None) -> int:
-    return 0 if t is None else t.data_ptr()
 
 
 class _PallasOps:
@@ -330,50 +333,45 @@ class _PallasOps:
                 call["then"].append(lambda: res.copy_(fn(src)))
         return res
 
-    def _buffers(self, key: tuple, hops: int, chunk: int, dtype) -> list[dict]:
+    def _buffers(self, key: tuple, chunk: int) -> list[dict]:
         """The buffers of one (op, dtype, chunk) class on every rank, made
-        at its first call: the ring kernels' slot, flag and acknowledgement
-        buffers; the direct allgather's mailbox ([out address, sequence
-        number]), done flags ([w, nblocks]) and the device table of every
-        rank's mailbox and done-flag addresses. They are made and zeroed on
-        each card's default stream, and every rank's stream waits for that
-        before its next launch: so no rank's kernel can store into a peer's
-        buffer before the peer's zeroing has run, and the host does not
-        wait."""
+        at its first call: the direct kernels' mailbox ([input address,
+        output address, sequence number]), done flags ([w, nblocks]) and
+        the device table of every rank's mailbox and done-flag addresses;
+        the quantized ring's slot, flag and acknowledgement buffers of its
+        2(w - 1) hops. They are made and zeroed on each card's default
+        stream, and every rank's stream waits for that before its next
+        launch: so no rank's kernel can store into a peer's buffer before
+        the peer's zeroing has run, and the host does not wait."""
         bufs = self._bufs.get(key)
         if bufs is not None:
             return bufs
-        kind, w = key[0], self.world
-        quantized = kind == "quantized"
+        w = self.world
+        quantized = key[0] == "quantized"
         units = chunk // QUANT_BLOCK if quantized else chunk
         per = _QBLOCKS_PER_BLOCK if quantized else _ELEMS_PER_BLOCK
         nblocks = max(1, min(self._max_blocks, -(-units // per)))
-        hops = max(1, hops)
+        hops = max(1, 2 * (w - 1))
         bufs = []
         for d in self.devices:
             with torch.cuda.device(d), torch.cuda.stream(
                     torch.cuda.default_stream(d)):
                 b = {"nblocks": nblocks}
-                if kind == "allgather":
-                    b["mail"] = torch.zeros(2, dtype=torch.int64, device=d)
-                    b["done"] = torch.zeros((w, nblocks), dtype=torch.int32,
-                                            device=d)
-                    bufs.append(b)
-                    continue
-                b["flags"] = torch.zeros((hops, nblocks), dtype=torch.int32,
-                                         device=d)
-                b["acks"] = torch.zeros((hops, nblocks), dtype=torch.int32,
-                                        device=d)
                 if quantized:
+                    b["flags"] = torch.zeros((hops, nblocks),
+                                             dtype=torch.int32, device=d)
+                    b["acks"] = torch.zeros((hops, nblocks),
+                                            dtype=torch.int32, device=d)
                     b["recv"] = torch.empty((hops, chunk), dtype=torch.int8,
                                             device=d)
                     b["srecv"] = torch.empty((hops, chunk // QUANT_BLOCK),
                                              dtype=torch.float32, device=d)
                 else:
-                    b["recv"] = torch.empty((hops, chunk), dtype=dtype,
+                    b["mail"] = torch.zeros(3, dtype=torch.int64, device=d)
+                    b["done"] = torch.zeros((w, nblocks), dtype=torch.int32,
                                             device=d)
             bufs.append(b)
-        if kind == "allgather":
+        if not quantized:
             table = ([b["mail"].data_ptr() for b in bufs]
                      + [b["done"].data_ptr() for b in bufs])
             for b, d in zip(bufs, self.devices):
@@ -397,8 +395,9 @@ class _PallasOps:
         """Checks one rank's CUDA call before it counts as made."""
         dtype = x.dtype
         if (kind, dtype, combine) not in _BUILT:
-            raise TypeError(f"ring {kind} with {combine} on {dtype}: no "
-                            "CUDA instance is built (csrc: ring_launch)")
+            raise TypeError(f"{kind} with {combine} on {dtype}: no CUDA "
+                            "instance is built (csrc: direct_launch, "
+                            "quantized_launch)")
         dev = self.devices[rank]
         if x.device != dev or not x.is_contiguous():
             raise ValueError(f"rank {rank}'s payload must be contiguous on "
@@ -410,12 +409,11 @@ class _PallasOps:
                 "under torch.cuda.stream(handle.stream); two ranks on one "
                 "stream would wait on each other")
 
-    def _launch(self, rank, kind, combine, x, out, chunk, hops):
-        """Launches one rank's ring (or direct allgather) kernel on its
-        stream."""
+    def _launch(self, rank, kind, combine, x, out, chunk):
+        """Launches one rank's kernel on its stream."""
         dtype, dev, stream = x.dtype, self.devices[rank], self.streams[rank]
         key = (kind, dtype, chunk)
-        bufs = self._buffers(key, hops, chunk, dtype)
+        bufs = self._buffers(key, chunk)
         w = self.world
         own, right, left = bufs[rank], bufs[(rank + 1) % w], bufs[(rank - 1) % w]
         seqs = self._seqs[key]
@@ -424,23 +422,24 @@ class _PallasOps:
         status = self._status[rank].data_ptr()
         lib = _lib()
         with torch.cuda.device(dev):
-            if kind == "allgather":
-                rc = lib.allgather_launch(
-                    x.data_ptr(), out.data_ptr(), own["peers"].data_ptr(),
-                    status, chunk, w, rank, own["nblocks"], seq, timeout_ns,
+            if kind in _KIND:
+                rc = lib.direct_launch(
+                    _KIND[kind], _DTYPE[dtype], _OP[combine], x.data_ptr(),
+                    out.data_ptr(), own["peers"].data_ptr(), status, chunk,
+                    w, rank, own["nblocks"], seq, timeout_ns,
                     stream.cuda_stream)
             else:
-                rc = lib.ring_launch(
-                    _KIND[kind], _DTYPE[dtype], _OP[combine], x.data_ptr(),
-                    out.data_ptr(), own["recv"].data_ptr(),
-                    right["recv"].data_ptr(), _ptr(own.get("srecv")),
-                    _ptr(right.get("srecv")), own["flags"].data_ptr(),
-                    right["flags"].data_ptr(), own["acks"].data_ptr(),
-                    left["acks"].data_ptr(), status, chunk, w, rank,
-                    own["nblocks"], seq, timeout_ns, stream.cuda_stream)
+                rc = lib.quantized_launch(
+                    _OP[combine], x.data_ptr(), out.data_ptr(),
+                    own["recv"].data_ptr(), right["recv"].data_ptr(),
+                    own["srecv"].data_ptr(), right["srecv"].data_ptr(),
+                    own["flags"].data_ptr(), right["flags"].data_ptr(),
+                    own["acks"].data_ptr(), left["acks"].data_ptr(), status,
+                    chunk, w, rank, own["nblocks"], seq, timeout_ns,
+                    stream.cuda_stream)
         if rc != 0:
-            self.broken = f"rank {rank}'s ring {kind} did not launch"
-            raise RuntimeError(f"ring {kind} launch failed: "
+            self.broken = f"rank {rank}'s {kind} did not launch"
+            raise RuntimeError(f"{kind} launch failed: "
                                f"{lib.ring_error_string(rc).decode()} "
                                f"(rank {rank}, chunk {chunk}, {dtype})")
 
@@ -463,8 +462,7 @@ class _PallasOps:
             return out[:n]
         self._validate(rank, "allreduce", combine, x)
         self._register(rank, sig)
-        self._launch(rank, "allreduce", combine, x, out, bp // w,
-                     2 * (w - 1))
+        self._launch(rank, "allreduce", combine, x, out, bp // w)
         ALLREDUCE_LAUNCHES += 1
         return out[:n]
 
@@ -481,7 +479,7 @@ class _PallasOps:
             return self._post_plain(rank, sig, x, out, reducescatter_plain)
         self._validate(rank, "reducescatter", "add", x)
         self._register(rank, sig)
-        self._launch(rank, "reducescatter", "add", x, out, p // w, w - 1)
+        self._launch(rank, "reducescatter", "add", x, out, p // w)
         REDUCESCATTER_LAUNCHES += 1
         return out
 
@@ -495,7 +493,7 @@ class _PallasOps:
             return self._post_plain(rank, sig, x, out, allgather_plain)
         self._validate(rank, "allgather", "add", x)
         self._register(rank, sig)
-        self._launch(rank, "allgather", "add", x, out, b, 0)
+        self._launch(rank, "allgather", "add", x, out, b)
         ALLGATHER_LAUNCHES += 1
         return out
 
@@ -522,8 +520,7 @@ class _PallasOps:
             x = x.clone()
         self._validate(rank, "quantized", combine, x)
         self._register(rank, sig)
-        self._launch(rank, "quantized", combine, x, out, b // w,
-                     2 * (w - 1))
+        self._launch(rank, "quantized", combine, x, out, b // w)
         QUANTIZED_LAUNCHES += 1
         return out
 

@@ -137,12 +137,17 @@ class TrainingOperator:
             flat = torch.cat([p.reshape(-1) for p in self._params])
         self._numel = flat.numel()
         self._pad_numel = _shard.padded_numel(self._numel, self.world_size)
-        lo, hi = _shard.shard_span(self._numel, self.world_size,
-                                   self.world_rank)
+        self._shard_lo, self._shard_hi = _shard.shard_span(
+            self._numel, self.world_size, self.world_rank)
+        self._param_shard = nn.Parameter(self._span_of(flat))
+        self._optimizer_factory = optimizer
+        self.optimizer = optimizer([self._param_shard])
+
+    def _span_of(self, flat):
+        """This rank's span of the flat parameters, padded to _pad_numel."""
         padded = torch.cat([flat, flat.new_zeros(self._pad_numel
                                                   - self._numel)])
-        self._param_shard = nn.Parameter(padded[lo:hi].clone())
-        self.optimizer = optimizer([self._param_shard])
+        return padded[self._shard_lo:self._shard_hi].clone()
 
     def register_data(self, *, train_loader: Iterable | None = None,
                       validation_loader: Iterable | None = None):
@@ -336,29 +341,101 @@ class TrainingOperator:
 
     def state_dict(self) -> dict:
         """Parameters and model state in the JAX layout, and the
-        optimizer's state: under sharded_update, this rank's shard."""
+        optimizer's state: `opt_state` when replicated; under
+        sharded_update, `sharded_update: True` and this rank's
+        `opt_shard` (opt_shard_state), as the JAX operator writes it."""
         with self._on_stream():  # the copies wait for the rank's steps
             params, model_state = self._to_tree(self.model)
-            opt_state = _to_host(self.optimizer.state_dict())
-        return {
-            "params": params,
-            "model_state": model_state,
-            "opt_state": opt_state,
-            "epoch": self.epoch,
-            "global_step": self.global_step,
-        }
+            out = {"params": params, "model_state": model_state,
+                   "epoch": self.epoch, "global_step": self.global_step}
+            if self._sharded:
+                out["sharded_update"] = True
+                out["opt_shard"] = self.opt_shard_state()
+            else:
+                out["opt_state"] = _to_host(self.optimizer.state_dict())
+        return out
 
     def load_state_dict(self, state: dict):
-        if self._sharded and self.world_size > 1:
-            raise NotImplementedError(
-                "load_state_dict under sharded_update: per-rank optimizer "
-                "shards come with the checkpoint files of ROADMAP.md A4/A5")
+        """Restores a state_dict. Under sharded_update the rank's
+        parameter shard is rebuilt from the restored parameters, and the
+        state's `opt_shard` is installed only where its world size and
+        rank are this rank's (the same state goes to every rank); a
+        replicated checkpoint is refused, and the reverse."""
+        if self._sharded and "opt_state" in state:
+            raise ValueError(
+                "replicated checkpoint (full opt_state) cannot load "
+                "into a sharded-update trainer; re-save it sharded "
+                "or construct Trainer(sharded=False)")
+        if not self._sharded and state.get("sharded_update"):
+            raise ValueError(
+                "sharded checkpoint cannot load into an unsharded "
+                "trainer; construct Trainer(sharded=True) or load "
+                "the sharded manifest via Trainer.load()")
         with self._on_stream():
             self._from_tree(self.model, state["params"],
                             state["model_state"])
-            self.optimizer.load_state_dict(state["opt_state"])
+            if self._sharded:
+                # in place: the optimizer holds this Parameter
+                with torch.no_grad():
+                    self._param_shard.copy_(self._span_of(torch.cat(
+                        [p.reshape(-1) for p in self._params])))
+                sh = state.get("opt_shard")
+                if (sh is not None and sh["world_size"] == self.world_size
+                        and sh["rank"] == self.world_rank):
+                    self.load_opt_shard(sh)
+            else:
+                self.optimizer.load_state_dict(state["opt_state"])
         self.epoch = state["epoch"]
         self.global_step = state["global_step"]
+
+    def _opt_state_names(self) -> list[str]:
+        """The names of the optimizer's per-parameter state, sorted: those
+        a fresh optimizer of the user's factory holds after one step."""
+        probe = nn.Parameter(torch.zeros(1, device=self.device))
+        opt = self._optimizer_factory([probe])
+        probe.grad = torch.zeros_like(probe)
+        opt.step()
+        return sorted(opt.state[probe])
+
+    def opt_shard_state(self) -> dict:
+        """This rank's optimizer shard in the JAX operator's dict format:
+        rank, world_size, span, numel, pad_numel, leaves. The leaves are
+        the torch optimizer's state of the rank's flat span, on the host,
+        one a state name in sorted order (AdamW: exp_avg, exp_avg_sq,
+        step; SGD with momentum: momentum_buffer); empty before the first
+        step. (optax's leaves differ: the two packages' optimizer states
+        are not interchangeable.)"""
+        with self._on_stream():
+            state = self.optimizer.state_dict()["state"].get(0, {})
+            leaves = [_to_host(state[k]) for k in sorted(state)]
+        return {"rank": self.world_rank, "world_size": self.world_size,
+                "span": (self._shard_lo, self._shard_hi),
+                "numel": self._numel, "pad_numel": self._pad_numel,
+                "leaves": leaves}
+
+    def load_opt_shard(self, shard: dict):
+        """Installs a shard from opt_shard_state; its geometry must be
+        this rank's."""
+        if (int(shard["world_size"]) != self.world_size
+                or tuple(shard["span"]) != (self._shard_lo, self._shard_hi)
+                or int(shard["numel"]) != self._numel):
+            raise ValueError(
+                f"optimizer shard geometry {shard['world_size']}x"
+                f"{tuple(shard['span'])} (numel {shard['numel']}) does "
+                f"not match rank {self.world_rank}: expected "
+                f"{self.world_size}x({self._shard_lo}, {self._shard_hi}) "
+                f"numel {self._numel}; reshard with "
+                "train.sharding.reshard_opt_shards first")
+        leaves = list(shard["leaves"])
+        names = self._opt_state_names() if leaves else []
+        if len(names) != len(leaves):
+            raise ValueError(f"optimizer shard holds {len(leaves)} state "
+                             f"leaves; this optimizer's state has {names}")
+        groups = self.optimizer.state_dict()["param_groups"]
+        with self._on_stream():
+            self.optimizer.load_state_dict({
+                "state": {0: dict(zip(names, leaves))} if leaves else {},
+                "param_groups": groups})
 
 
 def _to_host(obj):

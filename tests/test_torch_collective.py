@@ -386,3 +386,66 @@ def test_allgather_plain_writes_every_payload_to_every_rank():
     xs = [torch.arange(5, dtype=torch.float32) + 10 * r for r in range(3)]
     for out in pb.allgather_plain(xs):
         assert torch.equal(out, torch.stack(xs))
+
+
+@pytest.mark.parametrize("w", [2, 3, 4])
+def test_timeout_status_names_the_awaited_rank_direct_reduce(w):
+    """The direct allreduce and reduce-scatter wait for every peer's input
+    and output addresses (mailbox) and for its done flag; the status
+    names that peer."""
+    from ray_tpu_torch.collective.backends import pallas_backend as pb
+
+    for rank in range(w):
+        for other in set(range(w)) - {rank}:
+            for waited, text in ((pb.WAITED_ADDRS,
+                                  "input and output addresses"),
+                                 (pb.WAITED_DONE, "done flag")):
+                peer, what = pb.describe_wait(rank, w, [waited, other, 2, 4])
+                assert peer == other
+                assert what == (f"the {text} of rank {other} "
+                                "(call 4, block 2)")
+
+
+def _spread(w, n, dtype, seed):
+    """w payloads whose magnitudes span 2^30, so that the order of a sum
+    changes its rounding."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((w, n)) * 2.0 ** rng.integers(-15, 16, (w, n))
+    return [torch.from_numpy(r.astype(np.float32)).to(dtype) for r in x]
+
+
+def _direct_fold(xs, first):
+    """Chunk r of w folded as the direct kernels fold it: over ranks
+    first(r), first(r) + 1, ... (mod w), acc = acc + x_p[chunk r]."""
+    w = len(xs)
+    chunks = [x.reshape(w, -1) for x in xs]
+    out = []
+    for r in range(w):
+        acc = chunks[first(r)][r]
+        for k in range(1, w):
+            acc = acc + chunks[(first(r) + k) % w][r]
+        out.append(acc)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w", [3, 4])
+def test_direct_fold_order_reproduces_the_ring(w, dtype):
+    """B5 and B6 fold chunk r themselves instead of relaying it round the
+    ring; the order (allreduce: r, r + 1, ...; reduce-scatter: r + 1, ...,
+    r) gives the ring's plain versions bit for bit, and another order
+    does not."""
+    from ray_tpu_torch.collective.backends import pallas_backend as pb
+
+    xs = _spread(w, 64 * w, dtype, seed=w)
+    ring = pb.allreduce_plain(xs, "sum")
+    direct = torch.cat(_direct_fold(xs, lambda r: r))
+    for out in ring:
+        assert torch.equal(out, direct)
+    ring = pb.reducescatter_plain(xs)
+    direct = _direct_fold(xs, lambda r: (r + 1) % w)
+    for r in range(w):
+        assert torch.equal(ring[r], direct[r])
+    if dtype == torch.float32:
+        other = torch.cat(_direct_fold(xs, lambda r: (r + 1) % w))
+        assert not torch.equal(pb.allreduce_plain(xs, "sum")[0], other)

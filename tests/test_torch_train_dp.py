@@ -247,3 +247,128 @@ def test_trainer_rejects_mismatched_step_counts(data):
             trainer.train(num_steps=2)
     finally:
         trainer.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# sharded checkpoints: the restore (C1) and the reference's format (C2)
+# ---------------------------------------------------------------------------
+
+def _sharded_trainer(data, world, opt, first=0):
+    """A sharded trainer whose ranks train on batches first, first+1, ..."""
+    params, tokens = data
+    return Trainer(DPOp, num_workers=world, device="cpu", sharded=True,
+                   config={"params": params, "opt": opt,
+                           "batches": [list(t[first:]) for t in tokens]})
+
+
+@pytest.mark.parametrize("world,opt", [(1, "adamw"), (2, "sgd")])
+def test_sharded_restore_then_step_equals_fresh_first_step(data, world,
+                                                           opt):
+    """Two steps, load the initial state, one step (on batch 2): every
+    rank's parameters equal a fresh trainer's after its first step on
+    batch 2, bit for bit. Plain SGD at world 2 holds no optimizer state,
+    so no rank keeps any from the two steps (the state's opt_shard is
+    rank 0's and installs on rank 0 alone)."""
+    trainer = _sharded_trainer(data, world, opt)
+    initial = trainer.state_dict()
+    trainer.train(num_steps=2)
+    trainer.load_state_dict(initial)
+    trainer.train(num_steps=1)
+    fresh = _sharded_trainer(data, world, opt, first=2)
+    fresh.train(num_steps=1)
+    try:
+        for r in range(world):
+            assert torch.equal(_params(trainer.workers[r].operator.model),
+                               _params(fresh.workers[r].operator.model)), r
+            assert trainer.workers[r].operator.global_step == 1
+    finally:
+        trainer.shutdown()
+        fresh.shutdown()
+
+
+@pytest.fixture(scope="module")
+def jax_sharded(data):
+    """The JAX operator's opt_shard_state of each rank at world W, and
+    its two refusals' messages (no step runs, so nothing compiles)."""
+    import optax
+
+    from ray_tpu.train.operator import TrainingOperator as JaxOperator
+
+    params, _ = data
+
+    class Op(JaxOperator):
+        def setup(self, config):
+            self.register(
+                model_init=lambda key: jax.tree.map(jnp.asarray, params),
+                loss_fn=lambda p, b: jtr.loss_fn(p, b, JCFG),
+                optimizer=optax.sgd(0.1))
+
+    shards = [Op({"sharded_update": True}, r, W).opt_shard_state()
+              for r in range(W)]
+    state = {"params": params, "model_state": None, "epoch": 0,
+             "global_step": 0}
+    messages = {}
+    for sharded, extra in ((True, {"opt_state": ()}),
+                           (False, {"sharded_update": True})):
+        op = Op({"sharded_update": sharded}, 0, 1 if not sharded else W)
+        with pytest.raises(ValueError) as err:
+            op.load_state_dict({**state, **extra})
+        messages[sharded] = str(err.value)
+    return shards, messages
+
+
+def test_sharded_state_dict_carries_the_reference_format(data, jax_sharded):
+    shards, _ = jax_sharded
+    trainer = _sharded_trainer(data, W, "adamw")
+    try:
+        trainer.train(num_steps=1)
+        for r in range(W):
+            state = trainer.workers[r].state_dict()
+            assert state["sharded_update"] is True and "opt_state" not in state
+            got, want = state["opt_shard"], shards[r]
+            assert got.keys() == want.keys()
+            for k in ("rank", "world_size", "span", "numel", "pad_numel"):
+                assert got[k] == want[k], k
+            span = want["span"][1] - want["span"][0]
+            # AdamW: exp_avg, exp_avg_sq (the rank's span each), step
+            assert [tuple(t.shape) for t in got["leaves"]] == [
+                (span,), (span,), ()]
+            assert all(t.device.type == "cpu" for t in got["leaves"])
+    finally:
+        trainer.shutdown()
+
+
+@pytest.mark.parametrize("sharded", [True, False])
+def test_cross_loads_raise_the_reference_errors(data, jax_sharded, sharded):
+    """A replicated checkpoint into a sharded trainer, and the reverse."""
+    params, tokens = data
+    _, messages = jax_sharded
+    src = Trainer(DPOp, num_workers=W, device="cpu", sharded=not sharded,
+                  config={"params": params, "batches": [[], []]})
+    dst = Trainer(DPOp, num_workers=W, device="cpu", sharded=sharded,
+                  config={"params": params, "batches": [[], []]})
+    try:
+        with pytest.raises(ValueError) as err:
+            dst.load_state_dict(src.state_dict())
+        assert str(err.value) == messages[sharded]
+    finally:
+        src.shutdown()
+        dst.shutdown()
+
+
+def test_opt_shard_round_trip_and_geometry_mismatch(data):
+    trainer = _sharded_trainer(data, W, "adamw")
+    try:
+        trainer.train(num_steps=1)
+        op0, op1 = (w.operator for w in trainer.workers)
+        shard = op0.opt_shard_state()
+        with pytest.raises(ValueError, match="does not match rank 1"):
+            op1.load_opt_shard(shard)
+        with pytest.raises(ValueError, match="does not match rank 0"):
+            op0.load_opt_shard({**shard, "world_size": 3})
+        trainer.train(num_steps=1)  # moves rank 0's state on
+        op0.load_opt_shard(shard)
+        for a, b in zip(op0.opt_shard_state()["leaves"], shard["leaves"]):
+            assert torch.equal(a, b)
+    finally:
+        trainer.shutdown()
