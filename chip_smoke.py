@@ -38,16 +38,19 @@ ring kernels. Each phase prints one JSON line:
 7. train_gpt2: the GPT-2 main path, with the raw-loop control, tokens/s
    and the launches per step.
 8. collectives (run after kernels): the collective kernels B5-B8 (B5-B7
-   direct, B8 a ring) against their plain versions, which run the
+   direct; B8 the int8 allreduce, its reduce half the ring's hops, its
+   gather direct) against their plain versions, which run the
    reference's ring schedule, bit for bit, at w = 2, 3, 4 ranks on the
    card (one stream each), at 4096 f32 (16 KB), 16 MB, a ragged 10,007
    and GPT-2's gradient bucket (every kernel at w = 2; the f32 allreduce
-   add, the reduce-scatter and the allgather at w = 3 and 4 too); every
-   op and dtype the kernels are built for; 200 back-to-back calls of each
-   kernel with a random skew a rank; a withheld rank that must raise
-   TimeoutError naming it (B5, B6, B7 at w = 2, 3, 4); times of one call
-   (every rank's kernel) beside the bound and one PyTorch call over the
-   ranks' tensors.
+   add, the reduce-scatter, the allgather and B8 add at w = 3 and 4 too);
+   every op and dtype the kernels are built for (B8: add, max, min); 200
+   back-to-back calls of each kernel with a random skew a rank; a
+   withheld rank that must raise TimeoutError naming it (B5-B8 at w = 2,
+   3, 4; B8 through a group made with quantize="int8"); times of one
+   call (every rank's kernel) beside the bound, B8's also beside a bound
+   that counts its int8 wire, and one PyTorch call over the ranks'
+   tensors.
 9. train_gpt2_dp: GPT-2 124M through Trainer(num_workers=2,
    collective_transport="pallas") at 12 x 1024 tokens a rank, exact,
    quantize="int8" and sharded=True: tokens/s over both ranks, ring
@@ -931,9 +934,9 @@ def _ring_cases(w):
     """(kernel, combine, dtype, padded payload per rank, n) of one world
     size: each payload padded as the collective layer pads it on the main
     path (allreduce and allgather to _bucket(n); the reduce-scatter to the
-    sharded layout, padded_numel; the quantized ring to _qring_pad). GPT-2's
-    bucket: every kernel at w = 2; the f32 allreduce add, the
-    reduce-scatter and the allgather at every w."""
+    sharded layout, padded_numel; the quantized allreduce to _qring_pad).
+    GPT-2's bucket: every kernel at w = 2; the f32 allreduce add, the
+    reduce-scatter, the allgather and the quantized add at every w."""
     from ray_tpu_torch.collective.backends import device_backend as db
     from ray_tpu_torch.train import sharding
 
@@ -945,7 +948,9 @@ def _ring_cases(w):
                    sharding.padded_numel(GPT2_NUMEL, w), GPT2_NUMEL),
                   ("allgather", "add", torch.float32, db._bucket(
                       sharding.padded_numel(GPT2_NUMEL, w) // w),
-                   GPT2_NUMEL)]
+                   GPT2_NUMEL),
+                  ("quantized", "add", torch.float32,
+                   db._qring_pad(GPT2_NUMEL, w), GPT2_NUMEL)]
     for n in RING_SIZES + ((GPT2_NUMEL,) if w == 2 else ()):
         # the allreduce wrapper pads _bucket(n) to w chunks; so does this,
         # for the plain version
@@ -960,7 +965,7 @@ def _ring_cases(w):
                   ("allgather", "add", torch.float32,
                    db._bucket(sharding.padded_numel(n, w) // w), n)]
         cases += [("quantized", c, torch.float32, db._qring_pad(n, w), n)
-                  for c in ("add", "max")]
+                  for c in ("add", "max", "min")]
     return cases
 
 
@@ -1065,6 +1070,23 @@ def _ring_bound(ops, kind, length, w, elt):
                                   else "each rank's NVLink sends"))
 
 
+def _qwire_bytes(length, w):
+    """Bytes B8's int8 wire moves in one call, over all ranks: each rank's
+    w - 1 hop partials written into its right neighbour's slot and read
+    there, and its reduced chunk written once into its staging buffer and
+    read by the w - 1 peers; a chunk of C values is C int8 and C / 256
+    f32 scales."""
+    c = length // w
+    return w * (3 * w - 2) * (c + 4 * (c // 256))
+
+
+def _qbound_wire_ms(length, w):
+    """B8's bound with its int8 wire, on one card: every rank's f32 input
+    and output and the wire's bytes through its memory."""
+    return ((_ring_bytes("quantized", length, w, 4) + _qwire_bytes(length, w))
+            / PEAK_BYTES_S * 1e3)
+
+
 def _ring_blocks(ops, kind, dtype, length, w):
     """CUDA blocks a rank's kernel ran with (the group's buffers of the
     class hold the count)."""
@@ -1108,6 +1130,14 @@ def _check_ring_case(ops, kind, combine, dtype, length, w, dev, gen, flush,
             library_ms=(time_ms(lambda: lib(xs), flush=flush)
                         if lib is not None else None),
             bound_ms=bound_ms, bound_by=bound_by, bound_basis=basis)
+        if kind == "quantized":
+            row.update(
+                wire_bytes=_qwire_bytes(length, w),
+                bound_wire_ms=_qbound_wire_ms(length, w),
+                bound_wire_basis="one card: every rank's input and output "
+                "and the int8 wire (hop slots written and read, each "
+                "reduced chunk staged once and read by w - 1 peers) "
+                "through its memory")
     del xs, ranked, got, again, want
     return row
 
@@ -1152,17 +1182,19 @@ def _stress(ops, w, dev, gen):
     return out
 
 
-def _withhold(dev, kind, w):
+def _withhold(dev, kind, w, quantize=None):
     """One call that the last of w ranks withholds: every other rank's
     kernel gives up after the group's timeout, and the group raises a
-    TimeoutError at each of them that names the withheld rank."""
+    TimeoutError at each of them that names the withheld rank (a group
+    with quantize="int8" sends the allreduce to B8)."""
     import re
 
     from ray_tpu_torch import collective as col
 
-    name = f"withheld_{kind}_{w}"
+    name = f"withheld_{kind}_{w}_{quantize}"
     handles = [col.init_collective_group(w, r, group_name=name,
-                                         timeout=RING_TIMEOUT_S)
+                                         timeout=RING_TIMEOUT_S,
+                                         quantize=quantize)
                for r in range(w)]
     x = torch.ones(12288, device=dev)  # splits evenly over 2, 3, 4 ranks
     cur = torch.cuda.current_stream()
@@ -1192,13 +1224,17 @@ def _withhold(dev, kind, w):
 
 
 def _timeout_check(dev):
-    """The withheld rank, for the allreduce, the reduce-scatter and the
-    allgather at w = 2, 3, 4; then a new group works."""
+    """The withheld rank, for the allreduce, the reduce-scatter, the
+    allgather and the quantized allreduce at w = 2, 3, 4; then a new group
+    works."""
     from ray_tpu_torch import collective as col
 
     cases = {f"{kind} w={w}": _withhold(dev, kind, w)
              for kind in ("allreduce", "reducescatter", "allgather")
              for w in RING_WORLDS}
+    cases.update({f"quantized w={w}": _withhold(dev, "allreduce", w,
+                                                quantize="int8")
+                  for w in RING_WORLDS})
     x = torch.ones(4096, device=dev)
     handles = [col.init_collective_group(2, r, group_name="after",
                                          timeout=RING_TIMEOUT_S)
@@ -1256,7 +1292,7 @@ def phase_collectives(dev):
     for name, kind in (("ring_allreduce", "allreduce"),
                        ("ring_reducescatter", "reducescatter"),
                        ("ring_allgather", "allgather"),
-                       ("ring_allreduce_q", "quantized")):
+                       ("quantized_allreduce", "quantized")):
         main = next(r for r in rows if r["kind"] == kind and "ms" in r
                     and r["n"] == GPT2_NUMEL)
         summary[name] = {
@@ -1320,13 +1356,13 @@ def _ring_launches():
     return {"ring_allreduce": pb.ALLREDUCE_LAUNCHES,
             "ring_reducescatter": pb.REDUCESCATTER_LAUNCHES,
             "ring_allgather": pb.ALLGATHER_LAUNCHES,
-            "ring_allreduce_q": pb.QUANTIZED_LAUNCHES}
+            "quantized_allreduce": pb.QUANTIZED_LAUNCHES}
 
 
 # the collective kernels' names in a profiler trace (csrc
 # ring_collectives.cu)
 COLLECTIVE_KERNEL_NAMES = ("direct_reduce", "direct_allgather",
-                           "ring_allreduce_q")
+                           "quantized_allreduce")
 
 
 def _flat_params(model):
@@ -1439,7 +1475,7 @@ def phase_train_gpt2_dp(dev):
     n_ln, n_flash = gpt2_launches_per_step(cfg)
     runs, total = {}, collections.Counter()
     want_ring = {"exact": {"ring_allreduce": 1},
-                 "int8": {"ring_allreduce_q": 1},
+                 "int8": {"quantized_allreduce": 1},
                  "sharded": {"ring_reducescatter": 1, "ring_allgather": 1}}
     weights = {}
     for label, kwargs in (("exact", {}), ("int8", {"quantize": "int8"}),
@@ -1501,7 +1537,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                            ":183"),
     "ring_allgather": ("ray_tpu_torch/ops/csrc/ring_collectives.cu",
                        "ray_tpu/collective/backends/pallas_backend.py:206"),
-    "ring_allreduce_q": ("ray_tpu_torch/ops/csrc/ring_collectives.cu",
+    "quantized_allreduce": ("ray_tpu_torch/ops/csrc/ring_collectives.cu",
                          "ray_tpu/collective/backends/pallas_backend.py:227"),
 }
 

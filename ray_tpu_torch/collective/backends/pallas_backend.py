@@ -8,7 +8,8 @@ Here each op is one CUDA kernel a rank (`ops/csrc/ring_collectives.cu`):
   allreduce            <- _make_allreduce_kernel (B5), direct
   reducescatter_even   <- _make_reducescatter_kernel (B6), direct
   allgather            <- _make_allgather_kernel (B7), direct
-  allreduce_quantized  <- _make_quantized_allreduce_kernel (B8), a ring
+  allreduce_quantized  <- _make_quantized_allreduce_kernel (B8), the
+                          ring's reduce hops, a direct gather
 
 The reference's ring schedule (w ranks, each rank's flat payload cut into
 w chunks of C elements), which the plain versions below run hop by hop:
@@ -22,22 +23,26 @@ w chunks of C elements), which the plain versions below run hop by hop:
       bytes, each rank writing the received chunk into its output, so
       that in the quantized ring every rank dequantizes identical data.
 
-Only the quantized ring keeps those hops on the card (each re-quantizes
-its partial). The reference's rings follow the TPU's ICI, while the
-port's ranks reach each other all to all (one card, or cards with peer
-access), so the exact collectives are direct, with the ring's results:
-rank r folds chunk r itself from every rank's input, in the order the
-ring combines it (allreduce: x_r, x_{r+1}, ..., x_{r+w-1}, into chunk r
-of every rank's output; reduce-scatter: x_{r+1}, ..., x_r, into its own
-output), and the allgather stores each rank's payload straight into slot
-r of every output. A rank learns the peers' input and output addresses of
-the call from their mailboxes (csrc header).
+Only the quantized allreduce keeps the reduce hops on the card (each
+re-quantizes its partial, and its wire stays int8). The reference's
+rings follow the TPU's ICI, while the port's ranks reach each other all
+to all (one card, or cards with peer access), so the exact collectives
+are direct, with the ring's results: rank r folds chunk r itself from
+every rank's input, in the order the ring combines it (allreduce: x_r,
+x_{r+1}, ..., x_{r+w-1}, into chunk r of every rank's output;
+reduce-scatter: x_{r+1}, ..., x_r, into its own output), and the
+allgather stores each rank's payload straight into slot r of every
+output. The quantized allreduce's gather is direct too: the rank that
+ends with reduced chunk (r + 1) mod w quantizes it once into its staging
+buffer, and every peer dequantizes those bytes from there, which is the
+relay's result. A rank learns the peers' addresses of the call (input
+and output, or the staging buffer) from their mailboxes (csrc header).
 
 Every rank of a group lives in this process. `_PallasOps` is the group's
 rendezvous: each rank's device (rank r on cuda:(r % device_count)), its
-stream, its status words, the slot, flag and acknowledgement buffers of
-every (op, dtype, chunk) class (the direct kernels': mailboxes, done
-flags and a device table of their addresses), and the calls' sequence
+stream, its status words, the buffers of every (op, dtype, chunk) class
+(mailboxes, flags, the quantized allreduce's hop slots and staging
+buffers, and a device table of their addresses), and the calls' sequence
 numbers. A rank's kernel runs on the rank's stream, which must be the
 current stream when the rank calls: its blocks spin until the peers'
 kernels, on their own streams, have published their buffers or sent
@@ -57,7 +62,8 @@ naming the rank waited for, if one of its kernels gave up waiting for a
 peer (or, on the CPU, if a call still lacks a rank after the timeout).
 The plain versions run the reference's schedule over the w ranks'
 tensors, hop by hop; `chip_smoke.py` holds every kernel against them bit
-for bit, and the CPU tests hold the direct fold order against them.
+for bit, and the CPU tests hold the direct fold order and the quantized
+allreduce's direct gather against them.
 """
 
 from __future__ import annotations
@@ -102,14 +108,22 @@ _BUILT = {("allreduce", torch.float32, c) for c in _OP} | {
     ("allreduce", torch.bfloat16, "add"), ("allreduce", torch.int32, "add"),
     ("reducescatter", torch.float32, "add"),
     ("allgather", torch.float32, "add"),
-    ("quantized", torch.float32, "add"), ("quantized", torch.float32, "max")}
-# what a timed-out block waited for (csrc: Waited, status word 0)
-WAITED_DATA, WAITED_ACK, WAITED_MAIL, WAITED_DONE = 1, 2, 3, 4
-WAITED_ADDRS = 5
+    ("quantized", torch.float32, "add"), ("quantized", torch.float32, "max"),
+    ("quantized", torch.float32, "min")}
+# what a timed-out block waited for (csrc: Waited, status word 0; word 1
+# is the awaited rank)
+WAITED_MAIL, WAITED_ADDRS, WAITED_STAGE = 1, 2, 3
+WAITED_PARTIAL, WAITED_CHUNK, WAITED_DONE = 4, 5, 6
+_WAITED = {WAITED_MAIL: "the output address",
+           WAITED_ADDRS: "the input and output addresses",
+           WAITED_STAGE: "the staging addresses",
+           WAITED_PARTIAL: "the int8 partial",
+           WAITED_CHUNK: "the reduced int8 chunk",
+           WAITED_DONE: "the done flag"}
 
 # A block's share of a chunk before the grid grows (elements; quant
-# blocks for the quantized ring): small payloads take few blocks, so few
-# flags.
+# blocks for the quantized allreduce): small payloads take few blocks, so
+# few flags.
 _ELEMS_PER_BLOCK = 4096
 _QBLOCKS_PER_BLOCK = 16
 
@@ -161,37 +175,29 @@ def allgather_plain(xs: list[torch.Tensor]) -> list[torch.Tensor]:
     return outs
 
 
-def describe_wait(rank: int, world: int, status) -> tuple[int, str]:
-    """The rank that a timed-out kernel of `rank` waited for, and what it
-    waited for, from the rank's status words [waited, where, block, call]
-    (where: the hop in the quantized ring, the awaited rank in the direct
-    kernels: the allgather's mailbox holds the output address it needs,
-    the allreduce's and reduce-scatter's the input and output
-    addresses)."""
-    waited, where, block, call = (int(v) for v in status)
-    if waited == WAITED_DATA:
-        peer = (rank - 1) % world
-        what = f"data from rank {peer} at hop {where}"
-    elif waited == WAITED_ACK:
-        peer = (rank + 1) % world
-        what = f"the acknowledgement of rank {peer} at hop {where}"
-    elif waited in (WAITED_MAIL, WAITED_DONE, WAITED_ADDRS):
-        peer = where
-        what = {WAITED_MAIL: "the output address",
-                WAITED_DONE: "the done flag",
-                WAITED_ADDRS: "the input and output addresses"}[waited]
-        what = f"{what} of rank {peer}"
-    else:
+def describe_wait(status) -> tuple[int, str]:
+    """The rank that a timed-out kernel waited for, and what it waited
+    for, from the rank's status words [waited, awaited rank, block, call]:
+    a peer's mailbox (the allgather's holds the output address it needs,
+    the allreduce's and reduce-scatter's the input and output addresses,
+    the quantized allreduce's the staging addresses), the quantized
+    allreduce's int8 partial of a hop (from the left neighbour) or a
+    peer's staged reduced chunk, or a peer's done flag."""
+    waited, peer, block, call = (int(v) for v in status)
+    if waited not in _WAITED:
         raise ValueError(f"status {waited} names no wait")
-    return peer, f"{what} (call {call}, block {block})"
+    return peer, (f"{_WAITED[waited]} of rank {peer} "
+                  f"(call {call}, block {block})")
 
 
 def allreduce_quantized_plain(xs: list[torch.Tensor], op
                               ) -> list[torch.Tensor]:
     """The EQuARX int8 ring over ranks' f32 [w*C] payloads (C % 256 == 0)
-    -> each rank's f32 [w*C] output (B8's schedule): each reduce hop
-    quantizes the partial, the receiver dequantizes and combines; the
-    reduced chunk is quantized once and relayed as the same bytes."""
+    -> each rank's f32 [w*C] output (the reference's schedule): each
+    reduce hop quantizes the partial, the receiver dequantizes and
+    combines; the reduced chunk is quantized once and relayed as the same
+    bytes (B8 reads those bytes from the owner instead: the same
+    result)."""
     w = len(xs)
     cmb = _COMBINE_FNS[_COMBINE[ReduceOp(op)]]
     chunks = [x.reshape(w, -1) for x in xs]
@@ -224,7 +230,7 @@ def _lib():
                                       + [ctypes.c_void_p] * 4 + tail)
         lib.direct_launch.restype = ctypes.c_int
         lib.quantized_launch.argtypes = ([ctypes.c_int]
-                                         + [ctypes.c_void_p] * 11 + tail)
+                                         + [ctypes.c_void_p] * 5 + tail)
         lib.quantized_launch.restype = ctypes.c_int
         lib.ring_enable_peer_access.argtypes = [ctypes.c_int]
         lib.ring_enable_peer_access.restype = ctypes.c_int
@@ -335,14 +341,16 @@ class _PallasOps:
 
     def _buffers(self, key: tuple, chunk: int) -> list[dict]:
         """The buffers of one (op, dtype, chunk) class on every rank, made
-        at its first call: the direct kernels' mailbox ([input address,
-        output address, sequence number]), done flags ([w, nblocks]) and
-        the device table of every rank's mailbox and done-flag addresses;
-        the quantized ring's slot, flag and acknowledgement buffers of its
-        2(w - 1) hops. They are made and zeroed on each card's default
-        stream, and every rank's stream waits for that before its next
-        launch: so no rank's kernel can store into a peer's buffer before
-        the peer's zeroing has run, and the host does not wait."""
+        at its first call: the mailbox ([two addresses, sequence number]),
+        the flags ([w, nblocks] done flags; the quantized allreduce's
+        [3w - 1, nblocks]: done, staged chunk by owner, hop), the quantized
+        allreduce's hop slots ([w - 1] quantized chunks) and staging buffer
+        (one), each chunk int8 [C] then f32 scales [C / 256], and the
+        device table of every rank's mailbox, flags (and slots) addresses.
+        They are made and zeroed on each card's default stream, and every
+        rank's stream waits for that before its next launch: so no rank's
+        kernel can store into a peer's buffer before the peer's zeroing
+        has run, and the host does not wait."""
         bufs = self._bufs.get(key)
         if bufs is not None:
             return bufs
@@ -351,34 +359,28 @@ class _PallasOps:
         units = chunk // QUANT_BLOCK if quantized else chunk
         per = _QBLOCKS_PER_BLOCK if quantized else _ELEMS_PER_BLOCK
         nblocks = max(1, min(self._max_blocks, -(-units // per)))
-        hops = max(1, 2 * (w - 1))
+        rows = 3 * w - 1 if quantized else w
+        qchunk = chunk + 4 * (chunk // QUANT_BLOCK)  # bytes
         bufs = []
         for d in self.devices:
             with torch.cuda.device(d), torch.cuda.stream(
                     torch.cuda.default_stream(d)):
-                b = {"nblocks": nblocks}
+                b = {"nblocks": nblocks,
+                     "mail": torch.zeros(3, dtype=torch.int64, device=d),
+                     "flags": torch.zeros((rows, nblocks), dtype=torch.int32,
+                                          device=d)}
                 if quantized:
-                    b["flags"] = torch.zeros((hops, nblocks),
-                                             dtype=torch.int32, device=d)
-                    b["acks"] = torch.zeros((hops, nblocks),
-                                            dtype=torch.int32, device=d)
-                    b["recv"] = torch.empty((hops, chunk), dtype=torch.int8,
-                                            device=d)
-                    b["srecv"] = torch.empty((hops, chunk // QUANT_BLOCK),
-                                             dtype=torch.float32, device=d)
-                else:
-                    b["mail"] = torch.zeros(3, dtype=torch.int64, device=d)
-                    b["done"] = torch.zeros((w, nblocks), dtype=torch.int32,
-                                            device=d)
+                    b["slots"] = torch.empty(max(1, w - 1) * qchunk,
+                                             dtype=torch.uint8, device=d)
+                    b["stage"] = torch.empty(qchunk, dtype=torch.uint8,
+                                             device=d)
             bufs.append(b)
-        if not quantized:
-            table = ([b["mail"].data_ptr() for b in bufs]
-                     + [b["done"].data_ptr() for b in bufs])
-            for b, d in zip(bufs, self.devices):
-                with torch.cuda.device(d), torch.cuda.stream(
-                        torch.cuda.default_stream(d)):
-                    b["peers"] = torch.tensor(table, dtype=torch.int64,
-                                              device=d)
+        table = [b[k].data_ptr() for k in ("mail", "flags", "slots")
+                 if k in bufs[0] for b in bufs]
+        for b, d in zip(bufs, self.devices):
+            with torch.cuda.device(d), torch.cuda.stream(
+                    torch.cuda.default_stream(d)):
+                b["peers"] = torch.tensor(table, dtype=torch.int64, device=d)
         done = []
         for d in sorted(set(self.devices), key=lambda d: d.index):
             ev = torch.cuda.Event()
@@ -415,7 +417,7 @@ class _PallasOps:
         key = (kind, dtype, chunk)
         bufs = self._buffers(key, chunk)
         w = self.world
-        own, right, left = bufs[rank], bufs[(rank + 1) % w], bufs[(rank - 1) % w]
+        own = bufs[rank]
         seqs = self._seqs[key]
         seqs[rank] += 1
         seq, timeout_ns = seqs[rank] & 0xFFFFFFFF, int(self.timeout * 1e9)
@@ -431,10 +433,7 @@ class _PallasOps:
             else:
                 rc = lib.quantized_launch(
                     _OP[combine], x.data_ptr(), out.data_ptr(),
-                    own["recv"].data_ptr(), right["recv"].data_ptr(),
-                    own["srecv"].data_ptr(), right["srecv"].data_ptr(),
-                    own["flags"].data_ptr(), right["flags"].data_ptr(),
-                    own["acks"].data_ptr(), left["acks"].data_ptr(), status,
+                    own["peers"].data_ptr(), own["stage"].data_ptr(), status,
                     chunk, w, rank, own["nblocks"], seq, timeout_ns,
                     stream.cuda_stream)
         if rc != 0:
@@ -500,12 +499,12 @@ class _PallasOps:
     def allreduce_quantized(self, rank: int, x: torch.Tensor,
                             op) -> torch.Tensor:
         """B8: x f32 [w*C] with C % QUANT_BLOCK == 0 (the transport pads
-        with `_qring_pad`) -> the int8-ring reduced [w*C] f32."""
+        with `_qring_pad`) -> the int8-wire reduced [w*C] f32."""
         global QUANTIZED_LAUNCHES
         op = ReduceOp(op)
         w, b = self.world, x.numel()
         if op not in _QRING_OPS:
-            raise ValueError(f"the quantized ring has no {op.value}")
+            raise ValueError(f"the quantized allreduce has no {op.value}")
         if x.dtype != torch.float32 or b % (w * QUANT_BLOCK):
             raise ValueError(f"allreduce_quantized takes f32 [w*C] with "
                              f"C % {QUANT_BLOCK} == 0, got {x.dtype} [{b}]")
@@ -546,7 +545,7 @@ class _PallasOps:
         self.streams[rank].synchronize()
         status = self._status[rank].tolist()
         if status[0]:
-            _, what = describe_wait(rank, w, status)
+            _, what = describe_wait(status)
             self.broken = (f"rank {rank}'s collective waited more than "
                            f"{self.timeout} s for {what}")
             raise TimeoutError(self.broken)

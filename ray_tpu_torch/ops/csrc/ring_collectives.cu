@@ -2,18 +2,18 @@
 //
 // Replaces the four TPU kernels of
 // ray_tpu/collective/backends/pallas_backend.py:
-//   direct_reduce<ALL>  <- _make_allreduce_kernel (B5): exact allreduce
-//                          (add, max, min, mul), in the ring's combine
-//                          order, not a ring on this card; see below;
-//   direct_reduce<RS>   <- _make_reducescatter_kernel (B6): SUM, rank r
-//                          ends with reduced chunk r (the ring's
-//                          delta = -1), likewise direct;
-//   direct_allgather    <- _make_allgather_kernel (B7): direct;
-//   ring_allreduce_q    <- _make_quantized_allreduce_kernel (B8): the
-//                          EQuARX int8 ring (each reduce hop re-quantizes
-//                          the partial to int8 + one f32 scale per 256
-//                          values; the gather quantizes once and relays
-//                          the same bytes).
+//   direct_reduce<ALL>   <- _make_allreduce_kernel (B5): exact allreduce
+//                           (add, max, min, mul), in the ring's combine
+//                           order, not a ring on this card; see below;
+//   direct_reduce<RS>    <- _make_reducescatter_kernel (B6): SUM, rank r
+//                           ends with reduced chunk r (the ring's
+//                           delta = -1), likewise direct;
+//   direct_allgather     <- _make_allgather_kernel (B7): direct;
+//   quantized_allreduce  <- _make_quantized_allreduce_kernel (B8): the
+//                           EQuARX int8 allreduce, its reduce half the
+//                           ring's hops (each re-quantizes the partial to
+//                           int8 + one f32 scale per 256 values), its
+//                           gather half direct; see below.
 // Each rank of a group launches its kernel on its own stream. The ranks
 // may share one card or sit on several cards with peer access; the code is
 // the same.
@@ -46,56 +46,81 @@
 // int32 adds wrap; max and min propagate NaN as torch.maximum /
 // torch.minimum. Build without --use_fast_math.
 //
-// The direct protocol. One host thread launches the ranks in turn, so a
-// peer's buffers are not known when a rank is launched: each rank publishes
-// its call's input and output addresses in its mailbox (the two addresses,
-// then a release store (st.release.sys) of the call's sequence number),
-// and every block acquires (ld.acquire.sys) every peer's before it moves
-// data. Block b of rank r works on slice b of its chunk and talks only to
-// block b of the peers (no grid sync): it then posts a done flag, per
-// (source rank, block), to each peer (release), and returns only once its
-// own w - 1 done flags for block b have arrived. So when a rank's kernel
-// ends, every peer has finished reading its input and writing its output,
-// and neither those buffers nor its mailbox are still in use when the
-// caller reuses them or the next call publishes. Rank p's mailbox and done
-// flags reach the kernel through a device table of addresses, [2][w], made
-// once per buffer class (no world-size limit). Each thread keeps 4 16-byte
-// loads in flight a source (loads through L2 only, ld.global.cg, never a
-// stale L1 line of a peer's buffer), then stores each result once to each
-// destination, streaming (evict-first): no byte is touched twice. The grid
-// is capped by the caller at SMs / (2 * ranks on the card) blocks, so that
-// every rank's kernel fits on the card beside the others' work: a rank's
-// blocks spin on flags that another rank's kernel sets, and a spinning
-// block must never keep its partner from running.
+// The protocol, one for B5-B8. One host thread launches the ranks in
+// turn, so a peer's buffers are not known when a rank is launched: each
+// rank publishes two addresses of its call in its mailbox (B5, B6: input
+// and output; B7: output; B8: its staging buffer's payload and scales),
+// then a release store (st.release.sys) of the call's sequence number, and
+// every block acquires (ld.acquire.sys) every peer's before it touches a
+// peer's memory. So a wait for a rank that never launched is the first
+// wait of every peer, and each names that rank. Block b of rank r works on
+// slice b of its chunk(s) and talks only to block b of the peers (no grid
+// sync): it ends by posting a done flag, per (source rank, block), to each
+// peer (release), and returns only once its own w - 1 done flags for block
+// b have arrived. So when a rank's kernel ends, every peer has finished
+// reading its buffers and writing its output, and neither those buffers,
+// its slots nor its mailbox are still in use when the caller reuses them
+// or the next call publishes. Rank p's mailbox and flags reach the kernel
+// through a device table of addresses made once per buffer class ([2][w]:
+// mailboxes, flags; B8 [3][w]: also the hop slots); no world-size limit.
+// Each thread keeps 4 16-byte loads in flight a source (loads through L2
+// only, ld.global.cg, never a stale L1 line of a peer's buffer), then
+// stores each result once to each destination, streaming (evict-first):
+// no byte is touched twice. The grid is capped by the caller at SMs / (2 *
+// ranks on the card) blocks, so that every rank's kernel fits on the card
+// beside the others' work: a rank's blocks spin on flags that another
+// rank's kernel sets, and a spinning block must never keep its partner
+// from running.
 //
-// The quantized ring (B8) keeps the reference's hops, since every hop
-// re-quantizes its partial: block b of every rank runs the ring schedule
-// on slice b of every chunk. The sender writes its slice into the right
-// neighbour's slot for the hop, __syncthreads, then one thread issues
-// __threadfence_system and a release store of the call's sequence number
-// to the neighbour's flag; the receiver's thread 0 spins on an acquire
-// load until the flag reaches the sequence number, then __syncthreads,
-// then the block reads the slot with ld.global.cg. Write-once slots, as
-// the reference (pallas_backend.py:27-36): every hop writes its own slot of
-// the receiver. The slots persist across calls, so the receiver
-// acknowledges each slot after reading it, and the sender waits for call
-// k's acknowledgement before it writes the slot in call k + 1. The
-// quantizer is absmax / 127 and x / scale as IEEE divisions (__fdiv_rn),
-// rintf (half to even, as torch.round and jnp.round), a clamp to +-127 and
-// a scale of 1.0 for an all-zero block; dequantize-and-combine is __fmul_rn
-// then __fadd_rn.
+// The quantized allreduce (B8). Its wire is int8: every byte one rank's
+// kernel stores into, or reads from, another rank's memory is int8 payload
+// or an f32 scale, never the f32 values (reading the peers' f32 inputs, as
+// B5 does, would send four times the bytes over NVLink). Chunk c of C
+// values starts on rank c and is folded with x_{c+1}[c], ..., x_{c+w-1}[c]
+// in that order (the reference's ring), re-quantized after every combine:
+//   reduce half, w - 1 hops: rank r quantizes its chunk r into slot 0 of
+//     its right neighbour r + 1 (push); at hop s = 1 .. w - 1 it waits for
+//     its slot s - 1, dequantizes it, combines it with x_r[r - s] and
+//     quantizes the result into slot s of its right neighbour, or, at the
+//     last hop, into its own staging buffer: rank r ends with reduced chunk
+//     r + 1, quantized once, and dequantizes it into its own output;
+//   gather half, direct (pull): every peer o's reduced chunk o + 1 is read
+//     from o's staging buffer (its address from o's mailbox) and
+//     dequantized into the output; every rank dequantizes the same bytes.
+// The gather is one read of each staged chunk a peer, not the reference's
+// w - 1 relay hops. Bytes a call over all ranks, with c = C (1 + 4/256)
+// the bytes of a quantized chunk: each rank's input read once and output
+// written once (8 w C), plus the wire, (3w - 2) c a rank: w - 1 hop slots
+// written and read, the staged chunk written once and read by w - 1
+// peers. Block b of every rank works on quant blocks b*per .. of every
+// chunk, 512 threads, a warp per 256-value quant block and 4 of them in
+// flight a warp in the reduce half (8 in the gather): every 16-byte load
+// of x and every load of a slot's payload and scale is issued before the
+// first reduction. Lane l holds values 4l..4l+3 and 128+4l..128+4l+3 of its
+// quant block (each 16-byte load covers 512 contiguous bytes across the
+// warp), and its 8 int8 values go to bytes 8l..8l+7 of the block's 256 on
+// the wire (one 8-byte store a lane): the wire's order within a quant
+// block is the kernel's own, read back the same way. A hop's slot is
+// flagged per (hop, block) by the sender, the staged chunk per (owner,
+// block) to every peer. The quantizer is absmax / 127 and x / scale as
+// IEEE divisions (__fdiv_rn), a rounding half to even (as torch.round and
+// jnp.round), a clamp to +-127 and a scale of 1.0 for an all-zero block;
+// dequantize-and-combine is __fmul_rn then the combine. The int8
+// conversions are FP32 and byte arithmetic (quantize8, dequantize4):
+// the conversion units run at a quarter of the FP32 rate, and with only
+// the grid cap's SMs the kernel's instructions, not its bytes, bound it.
 //
 // A dead or late rank aborts, it does not hang: every spin is bounded by
 // the group's timeout, read from %globaltimer from the kernel's start. On
-// expiry the block records (what it waited for, where, block, call) in the
-// rank's status words, once, and returns; it never traps, which would kill
-// the context. The group reads the status when it next waits for the rank
-// and raises TimeoutError.
+// expiry the block records (what it waited for, the awaited rank, block,
+// call) in the rank's status words, once, and returns; it never traps,
+// which would kill the context. The group reads the status when it next
+// waits for the rank and raises TimeoutError.
 //
 // Instances: f32 {add, max, min, mul}, bf16 add and int32 add for the
 // allreduce; f32 add for the reduce-scatter; f32 for the allgather; f32
-// {add, max} for the quantized ring. Any other combination returns
-// kErrUnsupported.
+// {add, max, min} for the quantized allreduce. Any other combination
+// returns kErrUnsupported.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,15 +132,19 @@ namespace {
 enum Kind { kAllreduce = 0, kReduceScatter = 1, kAllgather = 2 };
 enum DType { kF32 = 0, kBF16 = 1, kI32 = 2 };
 enum Op { kAdd = 0, kMax = 1, kMin = 2, kMul = 3 };
-// what a timed-out block waited for (status word 0); word 1 is the ring's
-// hop for the first two and the awaited rank for the others
-enum Waited { kWaitedData = 1, kWaitedAck = 2, kWaitedMail = 3,
-              kWaitedDone = 4, kWaitedAddrs = 5 };
+// what a timed-out block waited for (status word 0; word 1 is the awaited
+// rank): a peer's mailbox (B7 its output address, B5 and B6 its input and
+// output addresses, B8 its staging addresses), B8's int8 partial of a hop
+// from the left neighbour and a peer's staged reduced chunk, a done flag
+enum Waited { kWaitedMail = 1, kWaitedAddrs = 2, kWaitedStage = 3,
+              kWaitedPartial = 4, kWaitedChunk = 5, kWaitedDone = 6 };
 
-constexpr int kThreads = 512;   // direct kernels: threads a block
-constexpr int kQThreads = 256;  // quantized: 8 warps, a quant block each
+constexpr int kThreads = 512;  // threads a block
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 4;     // 16-byte loads in flight a thread (source)
 constexpr int kQuantBlock = 256;
-constexpr int kUnroll = 4;      // 16-byte loads in flight a thread (source)
+constexpr int kQUnroll = 4;    // B8: quant blocks in flight a warp, reduce
+constexpr int kGUnroll = 8;    // B8: the same, gather
 constexpr int kErrUnsupported = 10000;
 
 __device__ __forceinline__ unsigned long long globaltimer() {
@@ -156,7 +185,7 @@ __device__ bool spin_until(const unsigned* p, unsigned want,
 }
 
 // Records a timed-out wait in the rank's status words, once a kernel:
-// what, where (hop or rank), block, call.
+// what, the awaited rank, block, call.
 __device__ void record_timeout(int* status, int waited, int where,
                                unsigned seq) {
   if (atomicCAS(status, 0, waited) == 0) {
@@ -265,59 +294,104 @@ __device__ __forceinline__ int succ(int p, int w) {
 }
 
 // ---------------------------------------------------------------------------
-// the direct kernels (B5, B6, B7; see the header)
+// the protocol (B5-B8; see the header)
 // ---------------------------------------------------------------------------
 
 struct DirectArgs {
   const void* x;
   void* out;
-  // [2][world] addresses: rank p's mailbox (u64 input and output
+  // [2][world] addresses (B8 [3][world]): rank p's mailbox (two u64
   // addresses, then the u32 sequence number of the call that published
-  // them), then rank p's done flags ([world][nblocks] u32, set by the
-  // source ranks)
+  // them), then rank p's flags ([rows][nblocks] u32: rows 0 .. w - 1 the
+  // done flags, set by the source ranks; B8 then the staged-chunk flags,
+  // set by their owners, and the hop flags, set by the left neighbour),
+  // then (B8) rank p's hop slots
   const unsigned long long* peers;
   int* status;
   long long chunk;  // elements a rank's chunk (B7: a rank's payload)
   int world, rank;
   unsigned seq;
   unsigned long long timeout_ns;
+  void* stage;  // B8: the rank's staging buffer
 };
 
-// Publishes this call's input and output addresses in the rank's mailbox
+// Publishes this call's two addresses (mine0, mine1) in the rank's mailbox
 // and reads every rank's into src[] and dst[] (shared memory). False,
 // with the status recorded as `waited`, when a peer's mailbox did not
 // come in time. *aligned: every address a multiple of 16 bytes.
-__device__ bool exchange(const DirectArgs& a, int waited,
+__device__ bool exchange(const DirectArgs& a, unsigned long long mine0,
+                         unsigned long long mine1, int waited,
                          unsigned long long* src, unsigned long long* dst,
                          unsigned long long deadline, bool* aligned) {
   const int w = a.world, r = a.rank;
   unsigned long long* const* mail =
       reinterpret_cast<unsigned long long* const*>(a.peers);
-  const unsigned long long x = reinterpret_cast<unsigned long long>(a.x);
-  const unsigned long long out = reinterpret_cast<unsigned long long>(a.out);
   if (threadIdx.x == 0) {
-    mail[r][0] = x;
-    mail[r][1] = out;
+    mail[r][0] = mine0;
+    mail[r][1] = mine1;
     st_release(reinterpret_cast<unsigned*>(mail[r] + 2), a.seq);
   }
   int good = 1, al = 1;
   for (int p = threadIdx.x; p < w; p += blockDim.x) {
-    unsigned long long in_p = x, out_p = out;
+    unsigned long long a0 = mine0, a1 = mine1;
     if (p != r) {
       if (good && spin_until(reinterpret_cast<const unsigned*>(mail[p] + 2),
                              a.seq, deadline)) {
-        in_p = ld_relaxed_u64(mail[p]);
-        out_p = ld_relaxed_u64(mail[p] + 1);
+        a0 = ld_relaxed_u64(mail[p]);
+        a1 = ld_relaxed_u64(mail[p] + 1);
       } else {
         if (good) record_timeout(a.status, waited, p, a.seq);
         good = 0;
       }
     }
-    src[p] = in_p;
-    dst[p] = out_p;
-    al &= (in_p | out_p) % 16 == 0;
+    src[p] = a0;
+    dst[p] = a1;
+    al &= (a0 | a1) % 16 == 0;
   }
   *aligned = __syncthreads_and(al) != 0;
+  return __syncthreads_and(good) != 0;
+}
+
+// Rank p's flags.
+__device__ __forceinline__ unsigned* flags_of(const DirectArgs& a, int p) {
+  return reinterpret_cast<unsigned* const*>(a.peers + a.world)[p];
+}
+
+// The block's flag in row `row` of a flags buffer.
+__device__ __forceinline__ unsigned* flag(unsigned* flags, int row) {
+  return flags + row * gridDim.x + blockIdx.x;
+}
+
+// After the block's loads and stores: sets its flag in row `row` of every
+// peer's flags.
+__device__ void post_peers(const DirectArgs& a, int row) {
+  __syncthreads();
+  for (int p = threadIdx.x; p < a.world; p += blockDim.x) {
+    if (p == a.rank) continue;
+    __threadfence_system();
+    st_release(flag(flags_of(a, p), row), a.seq);
+  }
+}
+
+// After the block's loads and stores: sets one flag.
+__device__ void post(const DirectArgs& a, unsigned* f) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence_system();
+    st_release(f, a.seq);
+  }
+}
+
+// The block waits for one flag of this call. False, with the status
+// recorded (`waited`, rank `peer`), on timeout.
+__device__ bool block_wait(const DirectArgs& a, const unsigned* f,
+                           int waited, int peer,
+                           unsigned long long deadline) {
+  int good = 1;
+  if (threadIdx.x == 0 && !spin_until(f, a.seq, deadline)) {
+    record_timeout(a.status, waited, peer, a.seq);
+    good = 0;
+  }
   return __syncthreads_and(good) != 0;
 }
 
@@ -326,21 +400,19 @@ __device__ bool exchange(const DirectArgs& a, int waited,
 __device__ void done_round(const DirectArgs& a,
                            unsigned long long deadline) {
   const int w = a.world, r = a.rank;
-  unsigned* const* done = reinterpret_cast<unsigned* const*>(a.peers + w);
-  __syncthreads();  // the block's loads and stores come first
+  post_peers(a, r);
   for (int p = threadIdx.x; p < w; p += blockDim.x) {
     if (p == r) continue;
-    __threadfence_system();
-    st_release(done[p] + r * gridDim.x + blockIdx.x, a.seq);
-  }
-  for (int p = threadIdx.x; p < w; p += blockDim.x) {
-    if (p == r) continue;
-    if (!spin_until(done[r] + p * gridDim.x + blockIdx.x, a.seq, deadline)) {
+    if (!spin_until(flag(flags_of(a, r), p), a.seq, deadline)) {
       record_timeout(a.status, kWaitedDone, p, a.seq);
       break;
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// the direct kernels (B5, B6, B7; see the header)
+// ---------------------------------------------------------------------------
 
 // B5 (ALL) and B6: the block's slice [lo, hi) of chunk r, folded over the
 // w sources first, first + 1, ... (mod w) from offset r * C of each; B5
@@ -403,7 +475,9 @@ __global__ void __launch_bounds__(kThreads) direct_reduce(DirectArgs a) {
   if (lo >= hi) return;  // the same on every rank
   const unsigned long long deadline = globaltimer() + a.timeout_ns;
   bool aligned;
-  if (!exchange(a, kWaitedAddrs, addrs, addrs + w, deadline, &aligned))
+  if (!exchange(a, reinterpret_cast<unsigned long long>(a.x),
+                reinterpret_cast<unsigned long long>(a.out), kWaitedAddrs,
+                addrs, addrs + w, deadline, &aligned))
     return;
   const int first = ALL ? r : succ(r, w);
   const long long off = static_cast<long long>(r) * C;
@@ -455,7 +529,9 @@ __global__ void __launch_bounds__(kThreads) direct_allgather(DirectArgs a) {
   if (lo >= hi) return;  // the same on every rank
   const unsigned long long deadline = globaltimer() + a.timeout_ns;
   bool aligned;
-  if (!exchange(a, kWaitedMail, addrs, addrs + w, deadline, &aligned))
+  if (!exchange(a, reinterpret_cast<unsigned long long>(a.x),
+                reinterpret_cast<unsigned long long>(a.out), kWaitedMail,
+                addrs, addrs + w, deadline, &aligned))
     return;
   const float* x = static_cast<const float*>(a.x);
   const long long off = static_cast<long long>(r) * C;
@@ -467,206 +543,235 @@ __global__ void __launch_bounds__(kThreads) direct_allgather(DirectArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// the quantized ring's hop protocol (B8; see the header)
+// B8: the quantized allreduce (see the header). A warp owns one 256-value
+// quant block at a time; lane l its values 4l..4l+3 and 128+4l..128+4l+3
+// and wire bytes 8l..8l+7.
 // ---------------------------------------------------------------------------
 
-struct RingArgs {
-  const float* x;
-  float* out;
-  signed char* recv;     // own slots [hops][chunk], written by the left
-  signed char* recv_right;  // the right neighbour's slots
-  float* srecv;          // own scale slots [hops][chunk / 256]
-  float* srecv_right;
-  unsigned* flags;       // own [hops][nblocks], set by the left neighbour
-  unsigned* flags_right;
-  unsigned* acks;        // own [hops][nblocks], set by the right neighbour
-  unsigned* acks_left;
-  int* status;           // own [4]: waited, hop, block, call
-  long long chunk;
-  int world, rank;
-  unsigned seq;
-  unsigned long long timeout_ns;
+// A quantized chunk: int8 payload [C] in wire order, f32 scales [C / 256].
+struct QBuf {
+  signed char* q;
+  float* s;
 };
 
-// The block waits until *p reaches `want`. False, with the rank's status
-// recorded, on timeout.
-__device__ bool block_wait(const RingArgs& a, const unsigned* p,
-                           unsigned want, int waited, int hop,
-                           unsigned long long deadline, int* ok) {
-  __syncthreads();  // every thread has read the previous wait's *ok
-  if (threadIdx.x == 0) {
-    const int good = spin_until(p, want, deadline);
-    if (!good) record_timeout(a.status, waited, hop, a.seq);
-    *ok = good;
-  }
-  __syncthreads();
-  return *ok != 0;
+// Slot h of a rank's hop slots: [w - 1][C] int8, then [w - 1][C / 256]
+// f32.
+__device__ __forceinline__ QBuf slot(signed char* base, int h, int w,
+                                     long long C) {
+  const long long hops = w - 1;
+  return {base + h * C,
+          reinterpret_cast<float*>(base + hops * C) + h * (C / kQuantBlock)};
 }
 
-// After the block's slot traffic: publish `flag` (data is in the right
-// neighbour's slot) and `ack` (this rank has read its slot), either null.
-__device__ void block_post(const RingArgs& a, unsigned* flag, unsigned* ack) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence_system();
-    if (flag != nullptr) st_release(flag, a.seq);
-    if (ack != nullptr) st_release(ack, a.seq);
-  }
+// A staging buffer: [C] int8, then [C / 256] f32.
+__device__ __forceinline__ QBuf stage(void* base, long long C) {
+  signed char* q = static_cast<signed char*>(base);
+  return {q, reinterpret_cast<float*>(q + C)};
 }
 
-__device__ __forceinline__ int mod(int a, int w) { return ((a % w) + w) % w; }
-
-// The (hop, block) flag of a [hops][nblocks] buffer.
-__device__ __forceinline__ unsigned* flag(unsigned* base, int h) {
-  return base + h * gridDim.x + blockIdx.x;
-}
-
-// ---------------------------------------------------------------------------
-// B8: the quantized ring. A warp owns one 256-value quant block at a time,
-// 8 consecutive values a lane; the block's slice is whole quant blocks.
-// ---------------------------------------------------------------------------
-
-struct Quant {
-  uint2 q;      // 8 int8 values of this lane
-  float scale;  // the quant block's scale (every lane holds it)
-};
-
-__device__ __forceinline__ Quant quantize8(const float (&v)[8]) {
-  float m = 0.f;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(v[j]));
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  Quant out;
-  out.scale = m > 0.f ? __fdiv_rn(m, 127.0f) : 1.0f;
-  signed char q[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float t = rintf(__fdiv_rn(v[j], out.scale));
-    q[j] = static_cast<signed char>(
-        static_cast<int>(fminf(fmaxf(t, -127.f), 127.f)));
-  }
-  memcpy(&out.q, q, 8);
-  return out;
-}
-
-__device__ __forceinline__ void dequantize8(const Quant& qt, float (&v)[8]) {
-  signed char q[8];
-  memcpy(q, &qt.q, 8);
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    v[j] = __fmul_rn(static_cast<float>(q[j]), qt.scale);
-}
-
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
+// The lane's 8 values of quant block qb.
+__device__ __forceinline__ void load_vals(const float* x, long long qb,
+                                          int lane, float (&v)[8]) {
+  const float* p = x + qb * kQuantBlock + 4 * lane;
+  const float4 a = __ldcg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldcg(reinterpret_cast<const float4*>(p + 128));
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+__device__ __forceinline__ void store_vals(float* out, long long qb,
+                                           int lane, const float (&v)[8]) {
+  float* p = out + qb * kQuantBlock + 4 * lane;
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  __stcs(reinterpret_cast<float4*>(p + 128),
+         make_float4(v[4], v[5], v[6], v[7]));
 }
 
-struct QSlots {
-  signed char* q;  // [hops][chunk]
-  float* s;        // [hops][chunk / 256]
-};
+// The int8 conversions stay off the card's conversion units (a quarter of
+// the FP32 rate), exactly: t in [-127, 127] rounds half to even to an
+// integer as t + 1.5 * 2^23, whose low byte is that integer's, and an
+// int8 b is (2^23 + (b ^ 0x80)) - (2^23 + 128), the first term made by
+// placing the byte under 2^23's exponent.
+constexpr float kRound = 12582912.0f;  // 1.5 * 2^23
+constexpr float kBias = 8388736.0f;    // 2^23 + 128
 
-__device__ __forceinline__ Quant load_quant(const QSlots& in, int h,
-                                            long long chunk, long long qb,
-                                            int lane) {
-  Quant qt;
-  qt.q = __ldcg(reinterpret_cast<const uint2*>(
-      in.q + h * chunk + qb * kQuantBlock + lane * 8));
-  qt.scale = __ldcg(in.s + h * (chunk / kQuantBlock) + qb);
-  return qt;
+// Four rounded values' low bytes, in order, as one word.
+__device__ __forceinline__ unsigned pack4(float a, float b, float c,
+                                          float d) {
+  return __byte_perm(
+      __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x0040),
+      __byte_perm(__float_as_uint(c), __float_as_uint(d), 0x0040), 0x5410);
 }
 
-__device__ __forceinline__ void store_quant(const QSlots& out, int h,
-                                            long long chunk, long long qb,
-                                            int lane, const Quant& qt) {
-  *reinterpret_cast<uint2*>(out.q + h * chunk + qb * kQuantBlock + lane * 8) =
-      qt.q;
-  if (lane == 0) out.s[h * (chunk / kQuantBlock) + qb] = qt.scale;
+// The warp's quant block: its scale (absmax / 127, 1 for an all-zero
+// block) and the lane's 8 int8 values: rint(v / scale) clamped to +-127
+// (the clamp first, which gives the same integers).
+__device__ __forceinline__ uint2 quantize8(const float (&v)[8],
+                                           float* scale) {
+  float m = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(v[j]));
+  // m >= 0 and never NaN, so its bits order as the values do
+  m = __uint_as_float(__reduce_max_sync(0xffffffffu, __float_as_uint(m)));
+  const float s = m > 0.f ? __fdiv_rn(m, 127.0f) : 1.0f;
+  float t[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    t[j] = __fadd_rn(fminf(fmaxf(__fdiv_rn(v[j], s), -127.f), 127.f),
+                     kRound);
+  *scale = s;
+  return make_uint2(pack4(t[0], t[1], t[2], t[3]),
+                    pack4(t[4], t[5], t[6], t[7]));
+}
+
+__device__ __forceinline__ void dequantize4(unsigned q, float scale,
+                                            float* v) {
+  const unsigned k = q ^ 0x80808080u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    v[j] = __fmul_rn(
+        __fsub_rn(__uint_as_float(__byte_perm(k, 0x4B000000u, 0x7440 + j)),
+                  kBias),
+        scale);
+}
+
+__device__ __forceinline__ void dequantize8(uint2 q, float scale,
+                                            float (&v)[8]) {
+  dequantize4(q.x, scale, v);
+  dequantize4(q.y, scale, v + 4);
+}
+
+// One hop of the reduce half over quant blocks [qlo, qhi) of a chunk:
+// v = x, or (IN) cmb(dequantized slot `in`, x); v quantized into `to`;
+// (OUT) the dequantized result into out. kQUnroll quant blocks a warp in
+// flight, every load issued before the first reduction.
+template <int OP, bool IN, bool OUT>
+__device__ void requant(const float* x, QBuf in, QBuf to, float* out,
+                        long long qlo, long long qhi) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (long long q0 = qlo + warp; q0 < qhi; q0 += kWarps * kQUnroll) {
+    float v[kQUnroll][8];
+    uint2 qi[kQUnroll];
+    float si[kQUnroll];
+#pragma unroll
+    for (int u = 0; u < kQUnroll; ++u) {
+      const long long qb = q0 + u * kWarps;
+      if (qb < qhi) {
+        load_vals(x, qb, lane, v[u]);
+        if constexpr (IN) {
+          qi[u] = __ldcg(reinterpret_cast<const uint2*>(
+                             in.q + qb * kQuantBlock) + lane);
+          si[u] = __ldcg(in.s + qb);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kQUnroll; ++u) {
+      const long long qb = q0 + u * kWarps;  // the same on every lane
+      if (qb < qhi) {
+        if constexpr (IN) {
+          float d[8];
+          dequantize8(qi[u], si[u], d);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            v[u][j] = Combine<float, OP>::f(d[j], v[u][j]);
+        }
+        float s;
+        const uint2 q = quantize8(v[u], &s);
+        reinterpret_cast<uint2*>(to.q + qb * kQuantBlock)[lane] = q;
+        if (lane == 0) to.s[qb] = s;
+        if constexpr (OUT) {
+          dequantize8(q, s, v[u]);
+          store_vals(out, qb, lane, v[u]);
+        }
+      }
+    }
+  }
+}
+
+// The gather half: quant blocks [qlo, qhi) of a staged chunk, dequantized
+// into out; kGUnroll a warp in flight.
+__device__ void dequant(QBuf in, float* out, long long qlo, long long qhi) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (long long q0 = qlo + warp; q0 < qhi; q0 += kWarps * kGUnroll) {
+    uint2 qi[kGUnroll];
+    float si[kGUnroll];
+#pragma unroll
+    for (int u = 0; u < kGUnroll; ++u) {
+      const long long qb = q0 + u * kWarps;
+      if (qb < qhi) {
+        qi[u] = __ldcg(reinterpret_cast<const uint2*>(
+                           in.q + qb * kQuantBlock) + lane);
+        si[u] = __ldcg(in.s + qb);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kGUnroll; ++u) {
+      const long long qb = q0 + u * kWarps;
+      if (qb < qhi) {
+        float v[8];
+        dequantize8(qi[u], si[u], v);
+        store_vals(out, qb, lane, v);
+      }
+    }
+  }
 }
 
 template <int OP>
-__global__ void __launch_bounds__(kQThreads) ring_allreduce_q(RingArgs a) {
-  __shared__ int ok;
+__global__ void __launch_bounds__(kThreads) quantized_allreduce(
+    DirectArgs a) {
+  extern __shared__ unsigned long long addrs[];  // stages: q[w], s[w]
   const int w = a.world, r = a.rank;
   const long long C = a.chunk, nqb = C / kQuantBlock;
   const long long per = (nqb + gridDim.x - 1) / gridDim.x;
   const long long qlo = per * blockIdx.x, qhi = min(nqb, qlo + per);
-  if (qlo >= qhi) return;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  constexpr int kWarps = kQThreads / 32;
-  const float* x = a.x;
-  float* out = a.out;
-  const QSlots own{a.recv, a.srecv};
-  const QSlots right{a.recv_right, a.srecv_right};
-  float v[8], xv[8];
+  if (qlo >= qhi) return;  // the same on every rank
+  const float* x = static_cast<const float*>(a.x);
+  float* out = static_cast<float*>(a.out);
+  const QBuf own = stage(a.stage, C);
   if (w == 1) {  // the reference quantizes and dequantizes its one chunk
-    for (long long qb = qlo + warp; qb < qhi; qb += kWarps) {
-      const long long e = qb * kQuantBlock + lane * 8;
-      load8(x + e, v);
-      dequantize8(quantize8(v), v);
-      store8(out + e, v);
-    }
+    requant<OP, false, true>(x, QBuf{}, own, out, qlo, qhi);
     return;
   }
   const unsigned long long deadline = globaltimer() + a.timeout_ns;
-  if (!block_wait(a, flag(a.acks, 0), a.seq - 1, kWaitedAck, 0, deadline,
-                  &ok))
+  bool aligned;
+  if (!exchange(a, reinterpret_cast<unsigned long long>(own.q),
+                reinterpret_cast<unsigned long long>(own.s), kWaitedStage,
+                addrs, addrs + w, deadline, &aligned))
     return;
-  for (long long qb = qlo + warp; qb < qhi; qb += kWarps) {
-    load8(x + r * C + qb * kQuantBlock + lane * 8, v);
-    store_quant(right, 0, C, qb, lane, quantize8(v));
-  }
-  block_post(a, flag(a.flags_right, 0), nullptr);
+  signed char* const* slots =
+      reinterpret_cast<signed char* const*>(a.peers + 2 * w);
+  const int right = succ(r, w), left = r == 0 ? w - 1 : r - 1;
+  unsigned* const mine = flags_of(a, r);
+  // flag rows: done [w], staged chunk by owner [w], hop [w - 1]
+  const int kStaged = w, kHop = 2 * w;
+  requant<OP, false, false>(x + r * C, QBuf{}, slot(slots[right], 0, w, C),
+                            nullptr, qlo, qhi);
+  post(a, flag(flags_of(a, right), kHop));
   for (int s = 1; s < w; ++s) {
-    if (!block_wait(a, flag(a.flags, s - 1), a.seq, kWaitedData, s - 1,
-                    deadline, &ok) ||
-        !block_wait(a, flag(a.acks, s), a.seq - 1, kWaitedAck, s, deadline,
-                    &ok))
+    if (!block_wait(a, flag(mine, kHop + s - 1), kWaitedPartial, left,
+                    deadline))
       return;
-    for (long long qb = qlo + warp; qb < qhi; qb += kWarps) {
-      const long long e = qb * kQuantBlock + lane * 8;
-      dequantize8(load_quant(own, s - 1, C, qb, lane), v);
-      load8(x + mod(r - s, w) * C + e, xv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = Combine<float, OP>::f(v[j], xv[j]);
-      const Quant qt = quantize8(v);
-      store_quant(right, s, C, qb, lane, qt);
-      if (s == w - 1) {
-        dequantize8(qt, v);
-        store8(out + mod(r + 1, w) * C + e, v);
-      }
+    const int c = (r - s + w) % w;
+    const QBuf in = slot(slots[r], s - 1, w, C);
+    if (s < w - 1) {
+      requant<OP, true, false>(x + c * C, in, slot(slots[right], s, w, C),
+                               nullptr, qlo, qhi);
+      post(a, flag(flags_of(a, right), kHop + s));
+    } else {  // c = r + 1: the reduced chunk, staged and into the output
+      requant<OP, true, true>(x + c * C, in, own, out + c * C, qlo, qhi);
+      post_peers(a, kStaged + r);
     }
-    block_post(a, flag(a.flags_right, s), flag(a.acks_left, s - 1));
   }
-  for (int s = 1; s < w; ++s) {
-    const int in = w - 2 + s;
-    const bool last = s == w - 1;
-    if (!block_wait(a, flag(a.flags, in), a.seq, kWaitedData, in, deadline,
-                    &ok) ||
-        (!last && !block_wait(a, flag(a.acks, in + 1), a.seq - 1, kWaitedAck,
-                              in + 1, deadline, &ok)))
+  for (int o = succ(r, w); o != r; o = succ(o, w)) {  // owner of o + 1
+    if (!block_wait(a, flag(mine, kStaged + o), kWaitedChunk, o, deadline))
       return;
-    for (long long qb = qlo + warp; qb < qhi; qb += kWarps) {
-      const Quant qt = load_quant(own, in, C, qb, lane);
-      if (!last) store_quant(right, in + 1, C, qb, lane, qt);
-      dequantize8(qt, v);
-      store8(out + mod(r - s + 1, w) * C + qb * kQuantBlock + lane * 8, v);
-    }
-    block_post(a, last ? nullptr : flag(a.flags_right, in + 1),
-               flag(a.acks_left, in));
+    dequant(QBuf{reinterpret_cast<signed char*>(addrs[o]),
+                 reinterpret_cast<float*>(addrs[w + o])},
+            out + succ(o, w) * C, qlo, qhi);
   }
+  done_round(a, deadline);
 }
-
 
 template <typename K>
 int launch_direct(K kernel, int nblocks, const DirectArgs& a,
@@ -728,37 +833,34 @@ int direct_launch(int kind, int dtype, int op, const void* x, void* out,
   return kErrUnsupported;
 }
 
-// One quantized ring allreduce (B8) of one rank, on `stream`; does not
-// synchronise. op: 0 add, 1 max. x, out: f32 [world][chunk], chunk a
-// multiple of 256, both 16-byte aligned. The slot, flag and ack buffers
-// are the group's, laid out as RingArgs says; every rank of a call passes
-// the same chunk, nblocks and seq. Returns the cudaError_t of the launch,
-// or kErrUnsupported for an instance that is not built.
-int quantized_launch(int op, const float* x, float* out, signed char* recv,
-                     signed char* recv_right, float* srecv,
-                     float* srecv_right, unsigned* flags,
-                     unsigned* flags_right, unsigned* acks,
-                     unsigned* acks_left, int* status, long long chunk,
-                     int world, int rank, int nblocks, unsigned seq,
+// One quantized allreduce (B8) of one rank, on `stream`; does not
+// synchronise. op: 0 add, 1 max, 2 min. x, out: f32 [world][chunk], chunk
+// a multiple of 256, both 16-byte aligned. peers: the group's device table
+// of [3][world] addresses (every rank's mailbox, its [3 world - 1][nblocks]
+// flags and its hop slots), stage: this rank's staging buffer, as
+// DirectArgs and the header say. Every rank of a call passes the same op,
+// chunk, nblocks and seq. Returns the cudaError_t of the launch, or
+// kErrUnsupported for an instance that is not built.
+int quantized_launch(int op, const float* x, float* out,
+                     const unsigned long long* peers, void* stage,
+                     int* status, long long chunk, int world, int rank,
+                     int nblocks, unsigned seq,
                      unsigned long long timeout_ns, void* stream) {
   if (chunk <= 0 || world < 1 || rank < 0 || rank >= world || nblocks < 1 ||
       chunk % kQuantBlock != 0 ||
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out) |
-       reinterpret_cast<uintptr_t>(recv) |
-       reinterpret_cast<uintptr_t>(recv_right)) % 16 != 0)
+       reinterpret_cast<uintptr_t>(stage)) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  RingArgs a{x,     out,         recv, recv_right,  srecv,
-             srecv_right, flags, flags_right, acks, acks_left,
-             status, chunk, world, rank, seq, timeout_ns};
+  DirectArgs a{x,    out,  peers,      status, chunk,
+               world, rank, seq, timeout_ns, stage};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (op == kAdd) {
-    ring_allreduce_q<kAdd><<<nblocks, kQThreads, 0, s>>>(a);
-  } else if (op == kMax) {
-    ring_allreduce_q<kMax><<<nblocks, kQThreads, 0, s>>>(a);
-  } else {
-    return kErrUnsupported;
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (op == kAdd)
+    return launch_direct(quantized_allreduce<kAdd>, nblocks, a, s);
+  if (op == kMax)
+    return launch_direct(quantized_allreduce<kMax>, nblocks, a, s);
+  if (op == kMin)
+    return launch_direct(quantized_allreduce<kMin>, nblocks, a, s);
+  return kErrUnsupported;
 }
 
 // Lets the current device's kernels reach `peer`'s memory (ranks on

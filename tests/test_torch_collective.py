@@ -16,17 +16,19 @@ Tolerances:
 - exact allreduce, reduce-scatter and allgather: bit-exact, for every
   op and dtype (the ring fixes the combine order, and each combine is
   one IEEE operation in both packages).
-- quantized allreduce: XLA compiles the reference kernel's
-  `absmax / 127.0` into a product with the rounded reciprocal and
-  contracts its dequantize-and-combine `q*scale + x` into one FMA. The
-  port (like its CUDA kernel) keeps the source's rounding: an IEEE
-  division and a product then a sum. So each element of the port lies
-  within (w - 1) quantization steps (absmax / 127 of its 256-block of the
-  JAX output) of the JAX value, at every w, and the port's ranks stay
-  bit-identical to each other. The port's ring schedule run with XLA's
-  rounding (the reciprocal scale, and the combine in float64 rounded once
-  to f32, which is the FMA here: q*scale is exact in float64) matches
-  JAX bit for bit at w = 2, 3 and 4.
+- quantized allreduce (SUM at w = 2, 3, 4, MAX at 3, MIN at 4): XLA
+  compiles the reference kernel's `absmax / 127.0` into a product with
+  the rounded reciprocal and contracts its dequantize-and-combine
+  `q*scale + x` into one FMA. The port (like its CUDA kernel) keeps the
+  source's rounding: an IEEE division and a product then the combine. So
+  each element of the port lies within (w - 1) quantization steps
+  (absmax / 127 of its 256-block of the JAX output) of the JAX value, at
+  every w, and the port's ranks stay bit-identical to each other. The
+  port's ring schedule run with XLA's rounding (the reciprocal scale, and
+  the combine in float64 rounded once to f32, which is the FMA here:
+  q*scale is exact in float64; a max or min of the float64 product and
+  an f32 value rounds to what the f32 product would give) matches JAX
+  bit for bit in every case.
 - block quantization, padding and wire accounting: exact.
 """
 
@@ -54,7 +56,8 @@ ALLREDUCE = [(4, "sum", F32, 10007), (3, "max", F32, 4096),
              (2, "sum", BF16, 4096), (3, "sum", I32, 4096)]
 REDUCESCATTER = [(2, 4096), (3, 3072)]
 ALLGATHER = [(2, 1000), (4, 4096)]
-QUANTIZED = [(2, 4096), (3, 4096), (4, 4096)]
+QUANTIZED = [(2, "sum", 4096), (3, "sum", 4096), (4, "sum", 4096),
+             (3, "max", 4096), (4, "min", 4096)]
 
 
 def _inputs(seed, w, n, dtype, op="sum"):
@@ -117,10 +120,10 @@ def jax_results():
         for i, (w, n) in enumerate(ALLGATHER):
             x = _lift(_inputs(200 + i, w, n, F32), jxla._bucket(n))
             out["ag", i] = run(w, lambda p: p.allgather, x)
-        for i, (w, n) in enumerate(QUANTIZED):
+        for i, (w, op, n) in enumerate(QUANTIZED):
             x = _lift(_inputs(300 + i, w, n, F32), jxla._qring_pad(n, w))
-            out["q", i] = run(w, lambda p: (
-                lambda g: p.allreduce_quantized(g, ReduceOp.SUM)), x)
+            out["q", i] = run(w, lambda p, op=op: (
+                lambda g: p.allreduce_quantized(g, ReduceOp(op))), x)
     return out
 
 
@@ -176,10 +179,10 @@ def test_allgather_bit_exact(jax_results, i):
 
 @pytest.mark.parametrize("i", range(len(QUANTIZED)))
 def test_quantized_allreduce_against_jax(jax_results, i):
-    w, n = QUANTIZED[i]
+    w, op, n = QUANTIZED[i]
     x = _inputs(300 + i, w, n, F32)
     with _group(w, quantize="int8") as hs:
-        outs = [h.allreduce(_to_torch(x[r])).numpy()
+        outs = [h.allreduce(_to_torch(x[r]), op).numpy()
                 for r, h in enumerate(hs)]
     want = jax_results["q", i][:, :n]
     for r in range(w):
@@ -216,11 +219,11 @@ def _xla_rounding(mp):
 @pytest.mark.parametrize("i", range(len(QUANTIZED)))
 def test_quantized_ring_schedule_bit_exact_under_xla_rounding(jax_results,
                                                               i):
-    w, n = QUANTIZED[i]
+    w, op, n = QUANTIZED[i]
     x = _inputs(300 + i, w, n, F32)
     with pytest.MonkeyPatch.context() as mp, _group(w, quantize="int8") as hs:
         _xla_rounding(mp)
-        outs = [h.allreduce(_to_torch(x[r])).numpy()
+        outs = [h.allreduce(_to_torch(x[r]), op).numpy()
                 for r, h in enumerate(hs)]
     want = jax_results["q", i][:, :n]
     for r in range(w):
@@ -358,26 +361,26 @@ def test_mismatched_calls_raise():
 
 @pytest.mark.parametrize("w", [2, 3, 4])
 def test_timeout_status_names_the_awaited_rank(w):
-    """The status words [waited, where, block, call] of a timed-out kernel
-    name the rank it waited for: the left neighbour's data or the right
-    neighbour's acknowledgement in the ring kernels, and any peer's output
-    address (mailbox) or done flag in the direct allgather."""
+    """The status words [waited, awaited rank, block, call] of a timed-out
+    kernel name the rank it waited for: in the quantized allreduce a
+    peer's staging addresses (its mailbox, awaited first, so a withheld
+    rank is named by every peer), the left neighbour's int8 partial of a
+    hop, a peer's staged reduced chunk or its done flag; in the direct
+    allgather a peer's output address (mailbox) or done flag. A status
+    word that names no wait raises."""
     from ray_tpu_torch.collective.backends import pallas_backend as pb
 
-    for rank in range(w):
-        peer, what = pb.describe_wait(rank, w, [pb.WAITED_DATA, 1, 3, 7])
-        assert peer == (rank - 1) % w
-        assert what == f"data from rank {peer} at hop 1 (call 7, block 3)"
-        peer, what = pb.describe_wait(rank, w, [pb.WAITED_ACK, 0, 0, 2])
-        assert peer == (rank + 1) % w and f"of rank {peer} at hop 0" in what
-        for other in set(range(w)) - {rank}:
-            for waited, text in ((pb.WAITED_MAIL, "output address"),
-                                 (pb.WAITED_DONE, "done flag")):
-                peer, what = pb.describe_wait(rank, w,
-                                              [waited, other, 5, 9])
-                assert peer == other
-                assert what == (f"the {text} of rank {other} "
-                                "(call 9, block 5)")
+    for other in range(w):
+        for waited, text in ((pb.WAITED_STAGE, "staging addresses"),
+                             (pb.WAITED_PARTIAL, "int8 partial"),
+                             (pb.WAITED_CHUNK, "reduced int8 chunk"),
+                             (pb.WAITED_MAIL, "output address"),
+                             (pb.WAITED_DONE, "done flag")):
+            peer, what = pb.describe_wait([waited, other, 5, 9])
+            assert peer == other
+            assert what == f"the {text} of rank {other} (call 9, block 5)"
+    with pytest.raises(ValueError, match="names no wait"):
+        pb.describe_wait([0, w - 1, 0, 1])
 
 
 def test_allgather_plain_writes_every_payload_to_every_rank():
@@ -395,15 +398,12 @@ def test_timeout_status_names_the_awaited_rank_direct_reduce(w):
     names that peer."""
     from ray_tpu_torch.collective.backends import pallas_backend as pb
 
-    for rank in range(w):
-        for other in set(range(w)) - {rank}:
-            for waited, text in ((pb.WAITED_ADDRS,
-                                  "input and output addresses"),
-                                 (pb.WAITED_DONE, "done flag")):
-                peer, what = pb.describe_wait(rank, w, [waited, other, 2, 4])
-                assert peer == other
-                assert what == (f"the {text} of rank {other} "
-                                "(call 4, block 2)")
+    for other in range(w):
+        for waited, text in ((pb.WAITED_ADDRS, "input and output addresses"),
+                             (pb.WAITED_DONE, "done flag")):
+            peer, what = pb.describe_wait([waited, other, 2, 4])
+            assert peer == other
+            assert what == f"the {text} of rank {other} (call 4, block 2)"
 
 
 def _spread(w, n, dtype, seed):
@@ -449,3 +449,64 @@ def test_direct_fold_order_reproduces_the_ring(w, dtype):
     if dtype == torch.float32:
         other = torch.cat(_direct_fold(xs, lambda r: (r + 1) % w))
         assert not torch.equal(pb.allreduce_plain(xs, "sum")[0], other)
+
+
+def _wire(q):
+    """int8 [n] in value order -> the quantized allreduce kernel's wire
+    order: in each 256-value block, lane l's bytes 8l..8l+7 hold values
+    4l..4l+3 and 128+4l..128+4l+3 (csrc header)."""
+    return q.reshape(-1, 2, 32, 4).transpose(1, 2).reshape(-1)
+
+
+def _unwire(q):
+    return q.reshape(-1, 32, 2, 4).transpose(1, 2).reshape(-1)
+
+
+def _quantized_direct_gather(xs, op):
+    """B8's schedule in PyTorch: the ring's reduce hops, rank r quantizing
+    its partial into its right neighbour's slot in wire order; rank r's
+    reduced chunk r + 1 quantized once into its staging buffer; every rank
+    dequantizing every owner's staged bytes into its output."""
+    from ray_tpu_torch.collective.backends import pallas_backend as pb
+
+    w = len(xs)
+    cmb = pb._COMBINE_FNS[pb._COMBINE[col.ReduceOp(op)]]
+    chunks = [x.reshape(w, -1) for x in xs]
+    acc = [chunks[r][r] for r in range(w)]
+    for s in range(1, w):
+        slots = {(r + 1) % w: (_wire(q), sc) for r, (q, sc) in
+                 enumerate(map(db.quantize_blocks, acc))}
+        acc = [cmb(db.dequantize_blocks(_unwire(slots[r][0]), slots[r][1]),
+                   chunks[r][(r - s) % w]) for r in range(w)]
+    stages = [(_wire(q), sc) for q, sc in map(db.quantize_blocks, acc)]
+    outs = [torch.empty_like(c) for c in chunks]
+    for out in outs:
+        for o, (q, sc) in enumerate(stages):
+            out[(o + 1) % w] = db.dequantize_blocks(_unwire(q), sc)
+    return [o.reshape(-1) for o in outs]
+
+
+@pytest.mark.parametrize("op", ["sum", "max", "min"])
+@pytest.mark.parametrize("w", [2, 3, 4])
+def test_quantized_direct_gather_reproduces_the_ring(w, op):
+    """B8 keeps the ring's reduce hops but reads each reduced chunk's
+    quantized bytes from its owner instead of relaying them round the
+    ring: that gives `allreduce_quantized_plain` (the reference's
+    schedule) bit for bit, on every rank, for add, max and min."""
+    from ray_tpu_torch.collective.backends import pallas_backend as pb
+
+    xs = _spread(w, 512 * w, torch.float32, seed=10 * w + len(op))
+    ring = pb.allreduce_quantized_plain(xs, op)
+    for got, want in zip(_quantized_direct_gather(xs, op), ring):
+        assert torch.equal(got, want)
+        assert torch.equal(got, ring[0])
+
+
+def test_every_quantized_op_has_a_cuda_instance():
+    """Every op the transport sends to the quantized allreduce (SUM, MEAN,
+    MAX, MIN) has a built CUDA instance: a CUDA tensor's MIN raised
+    TypeError before, while the CPU ran it through the plain version."""
+    from ray_tpu_torch.collective.backends import pallas_backend as pb
+
+    for op in db._QRING_OPS:
+        assert ("quantized", torch.float32, pb._COMBINE[op]) in pb._BUILT
