@@ -145,28 +145,49 @@ def _call(ops, fn, xs, lib):
     return chip_smoke._ring_call(ops, fn, xs)
 
 
+def _use_in_worker(trainer, path):
+    """_use of the variant library at `path` in the trainer's worker
+    process (the ranks run there, not in this one)."""
+    import ray_tpu_torch
+
+    def setup(ops):
+        _use(ctypes.CDLL(path))
+
+    ray_tpu_torch.get(trainer.workers[0].run.remote(setup))
+
+
 def _dp(libs):
     """The int8 DP path with B8 as built and as q_regs64, the exact run
     beside them, in turns; one JSON line each."""
     import chip_smoke
+    import ray_tpu_torch
     from ray_tpu_torch.models import transformer
 
     params = transformer.params_to_jax(
         transformer.GPT(chip_smoke.gpt2_config(), seed=0))
-    for label, name, kwargs in (
-            ("exact", "kernel", {}),
-            ("int8", "kernel", {"quantize": "int8"}),
-            ("int8", "q_regs64", {"quantize": "int8"}),
-            ("int8", "q_regs64", {"quantize": "int8"}),
-            ("int8", "kernel", {"quantize": "int8"}),
-            ("exact", "kernel", {})):
-        _use(libs[name])
-        fields, _, _ = chip_smoke._dp_run(params, label, **kwargs)
-        print(json.dumps({"dp": label, "b8": name, **{
-            k: fields[k] for k in ("tokens_s", "ring_share_of_device_time",
-                                   "device_busy_ms_per_step",
-                                   "wall_ms_per_step_profiled")}}),
-              flush=True)
+    ray_tpu_torch.init(object_store_memory=chip_smoke.STORE_BYTES)
+    try:
+        for label, name, kwargs in (
+                ("exact", "kernel", {}),
+                ("int8", "kernel", {"quantize": "int8"}),
+                ("int8", "q_regs64", {"quantize": "int8"}),
+                ("int8", "q_regs64", {"quantize": "int8"}),
+                ("int8", "kernel", {"quantize": "int8"}),
+                ("exact", "kernel", {})):
+            trainer = chip_smoke._dp_trainer(
+                params, chip_smoke.GPT_BATCH, torch.bfloat16,
+                chip_smoke._adamw, chip_smoke.WARMUP + chip_smoke.DP_STEPS
+                + chip_smoke.DP_PROFILE_STEPS, **kwargs)
+            _use_in_worker(trainer, libs[name]._name)
+            fields, _, _ = chip_smoke._dp_measure(trainer, label)
+            print(json.dumps({"dp": label, "b8": name, **{
+                k: fields[k] for k in ("tokens_s",
+                                       "ring_share_of_device_time",
+                                       "device_busy_ms_per_step",
+                                       "wall_ms_per_step_profiled")}}),
+                  flush=True)
+    finally:
+        ray_tpu_torch.shutdown()
 
 
 def _copies(xs, wire_bytes):

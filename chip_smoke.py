@@ -6,8 +6,10 @@ Run from the root of a checkout:
     python3 chip_smoke.py
 
 It builds every kernel under ray_tpu_torch/ops/csrc/ with nvcc, holds each
-against its plain PyTorch version at the shapes of the main paths, and
-drives the three main paths through `ray_tpu_torch.train.Trainer`:
+against its plain PyTorch version at the shapes of the main paths,
+starts the port's runtime (`ray_tpu_torch.init()`) on the card, and
+drives the three main paths through `ray_tpu_torch.train.Trainer`, whose
+ranks run in a TrainWorker actor, a process of its own on the card:
 ResNet-50 training at batch 256, 224², bf16, with the batchnorm backward
 sums in the hand-written kernel; GPT-2 124M training at batch 12 x 1024
 tokens, bf16, with every layernorm and flash-attention forward in the
@@ -29,14 +31,26 @@ ring kernels. Each phase prints one JSON line:
 4. resnet50_step: one step of bn_mode="kernel" against "plain" from the
    same weights and batch: float32 (TF32 off) at batch 32, and bf16 at
    batch 64.
-5. train: the ResNet-50 main path, with the raw-loop control and the
-   launch count.
-6. gpt2_step: one loss and gradient of ops_mode="kernel" against "plain"
+5. gpt2_step: one loss and gradient of ops_mode="kernel" against "plain"
    from the same weights and tokens: float32 (TF32 off) at batch 2 x 1024,
    and bf16 at batch 12 x 1024, each kernel call also held against its
    plain version on its own inputs.
-7. train_gpt2: the GPT-2 main path, with the raw-loop control, tokens/s
-   and the launches per step.
+6. runtime: the cluster's GPU count against nvidia-smi's; a num_gpus=1
+   actor in a process and CUDA context of its own (CUDA_VISIBLE_DEVICES,
+   the card's name); a 256 MB bf16 tensor from the driver to it through
+   put, summed on its card, and back bit-equal, twice (put, round-trip
+   and get ms); /dev/shm and the object store.
+   The train phases run in the worker actor: every kernel counter is set
+   to 0 in the worker and in the driver just before the measured
+   train(), the worker's are read through read_counter just after, and
+   the driver's must still be 0. Each prints framework_fraction (the
+   worker's throughput against the raw loop, run in the driver after the
+   trainer's shutdown) and the driver's wall time per train(), which
+   holds the actor boundary and the state_dict that comes back after
+   each epoch.
+7. train: the ResNet-50 main path, with the raw-loop control and the
+   launch count; train_gpt2: the GPT-2 main path, with the raw-loop
+   control, tokens/s and the launches per step.
 8. collectives (run after kernels): the collective kernels B5-B8 (B5-B7
    direct; B8 the int8 allreduce, its reduce half the ring's hops, its
    gather direct) against their plain versions, which run the
@@ -55,9 +69,11 @@ ring kernels. Each phase prints one JSON line:
    collective_transport="pallas") at 12 x 1024 tokens a rank, exact,
    quantize="int8" and sharded=True: tokens/s over both ranks, ring
    launches a rank and step, the ring kernels' share of device time,
-   peak memory, losses; the ranks bit-identical, sharded bit-identical to
-   exact, int8 within a band of exact with its saved bytes counted, and a
-   float32 DP step against a single-worker step at the combined batch.
+   peak memory, losses (the device times from the worker's
+   train(profile_dir=) chrome trace); the ranks bit-identical, sharded
+   bit-identical to exact, int8 within a band of exact with its saved
+   bytes counted, and a float32 DP step against a single-worker step at
+   the combined batch.
 Then the card's name and power limit, the kernels summary line and, last,
 {"ok": true, "device": {...}}. A failed phase raises: the script exits
 non-zero and prints no result. Without CUDA it exits 2 at once.
@@ -67,6 +83,7 @@ import collections
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -636,6 +653,12 @@ def _operator_cls():
 
     class Op(TrainingOperator):
         def setup(self, config):
+            # the worker's process picks its convolutions as the raw
+            # loop's (a local import: cloudpickle cannot pickle the
+            # cudnn module object a by-value class would reference)
+            from torch.backends import cudnn
+
+            cudnn.benchmark = True
             model = resnet.ResNet(resnet.resnet50(bn_mode="kernel"), seed=0)
             self.register(
                 model=model, optimizer=_sgd,
@@ -672,37 +695,205 @@ def _raw_img_s(dev):
     return BATCH * STEPS / dt, losses
 
 
+# ---------------------------------------------------------------------------
+# the main paths through the runtime: Trainer -> TrainWorker actor
+# ---------------------------------------------------------------------------
+
+# The object store of the runtime: the GPT-2 state_dict that comes back
+# after each train() (124.4M parameters and AdamW's two moments, f32:
+# 1.5 GB) and the DP trainer's weights (0.5 GB, held while the worker
+# lives) must fit at once, with room to spare.
+STORE_BYTES = 8 << 30
+# the runtime phase's payload: 256 MB of bf16
+RUNTIME_NUMEL = 128 << 20
+
+
+class _Probe:
+    """A num_gpus=1 actor of the runtime phase."""
+
+    def whoami(self):
+        import os
+
+        import torch
+
+        x = torch.ones(1, device="cuda")  # this process's own context
+        return {"pid": os.getpid(),
+                "cuda_visible_devices": os.environ["CUDA_VISIBLE_DEVICES"],
+                "device_count": torch.cuda.device_count(),
+                "name": torch.cuda.get_device_name(),
+                "context": bool(torch.cuda.is_initialized()
+                                and x.is_cuda)}
+
+    def round_trip(self, t):
+        """The tensor to the card, summed there, and back."""
+        import torch
+
+        on_card = t.to("cuda")
+        total = on_card.float().sum().item()
+        torch.cuda.synchronize()
+        return on_card, total
+
+
+def phase_runtime(dev, smi):
+    """ray_tpu_torch.init() on the card: the GPU count, a num_gpus=1
+    actor in a process of its own, and a 256 MB bf16 tensor from the
+    driver to it through put, summed on its card, and back."""
+    import shutil
+
+    import ray_tpu_torch
+    from ray_tpu_torch._private import global_state
+
+    t0 = time.perf_counter()
+    info = ray_tpu_torch.init(object_store_memory=STORE_BYTES)
+    init_s = time.perf_counter() - t0
+    smi_gpus = len(subprocess.run(
+        ["nvidia-smi", "-L"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines())
+    resources = ray_tpu_torch.cluster_resources()
+    probe = ray_tpu_torch.remote(num_gpus=1)(_Probe).remote()
+    t0 = time.perf_counter()
+    who = ray_tpu_torch.get(probe.whoami.remote(), timeout=300)
+    actor_start_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(RUNTIME_NUMEL, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    want_sum = x.float().sum().item()
+    torch.cuda.synchronize()
+    # two rounds: the first writes store pages never touched before, the
+    # second reuses the arena the first freed
+    put_ms, actor_ms, get_ms, bit_equal, sums = [], [], [], True, []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        ref = ray_tpu_torch.put(x)
+        put_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        back_ref = probe.round_trip.remote(ref)
+        ready, _ = ray_tpu_torch.wait([back_ref], timeout=300)
+        actor_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        back, got_sum = ray_tpu_torch.get(back_ref)
+        get_ms.append((time.perf_counter() - t0) * 1e3)
+        bit_equal = bool(bit_equal and ready and back.dtype == x.dtype
+                         and back.shape == x.shape
+                         and torch.equal(back.view(torch.int16),
+                                         x.cpu().view(torch.int16)))
+        sums.append(got_sum)
+        del ref, back_ref, back
+    ray_tpu_torch.kill(probe)
+    store = global_state.get_core_worker().store
+    shm = shutil.disk_usage("/dev/shm") if os.path.isdir("/dev/shm") else None
+    df = subprocess.run(["df", "-B1", "/dev/shm"], capture_output=True,
+                        text=True, timeout=60).stdout.strip()
+    fields = {
+        "nvidia_smi": smi, "init_s": init_s, "session": info["session_dir"],
+        "cluster_gpus": resources.get("GPU", 0), "nvidia_smi_gpus": smi_gpus,
+        "driver_pid": os.getpid(), "actor": who,
+        "actor_start_s": actor_start_s, "bytes": x.numel() * x.element_size(),
+        "put_ms": put_ms, "actor_round_trip_ms": actor_ms, "get_ms": get_ms,
+        "bit_equal": bit_equal, "sum_driver": want_sum, "sum_actor": sums,
+        "store_root": store.root,
+        "store": store.stats() if hasattr(store, "stats") else "files",
+        "dev_shm_free": shm.free if shm else None, "df_dev_shm": df}
+    emit("runtime", **fields)
+    ok = (resources.get("GPU", 0) == smi_gpus and who["pid"] != os.getpid()
+          and who["device_count"] == 1 and who["context"]
+          and who["cuda_visible_devices"] != ""
+          and who["name"] == torch.cuda.get_device_name(0)
+          and bit_equal and sums == [want_sum] * 2)
+    if not ok:
+        raise RuntimeError(f"runtime: {fields}")
+
+
+def zero_counts():
+    """Sets every kernel's launch counter of this process to 0 (the
+    driver's, or, run through TrainWorker.run, the worker's)."""
+    import importlib
+
+    from ray_tpu_torch.train.trainer import KERNEL_COUNTERS
+
+    for module, attr in KERNEL_COUNTERS.values():
+        setattr(importlib.import_module(module), attr, 0)
+
+
+def local_counts():
+    """This process's kernel launch counters, by name."""
+    import importlib
+
+    from ray_tpu_torch.train.trainer import KERNEL_COUNTERS
+
+    return {name: getattr(importlib.import_module(module), attr)
+            for name, (module, attr) in KERNEL_COUNTERS.items()}
+
+
+def _worker_reset(ops):
+    """Run in the worker before a measured epoch: its work done, its
+    peak memory and its kernel counters from 0."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+
+
+def _worker_peak(ops):
+    return torch.cuda.max_memory_allocated()
+
+
+def measured_train(trainer, steps, **kw):
+    """One train() of the main path with every count set to 0 just
+    before: the worker's counters (read back through read_counter), the
+    driver's (which must stay 0: no rank runs here), the worker's peak
+    memory; and the driver's wall time of the call, which holds the
+    actor boundary and the state_dict that comes back after the epoch."""
+    import ray_tpu_torch
+    from ray_tpu_torch.train.trainer import KERNEL_COUNTERS
+
+    worker = trainer.workers[0]
+    ray_tpu_torch.get(worker.run.remote(_worker_reset))
+    zero_counts()
+    t0 = time.perf_counter()
+    result = trainer.train(num_steps=steps, **kw)
+    wall = time.perf_counter() - t0
+    counts = dict(zip(KERNEL_COUNTERS, ray_tpu_torch.get(
+        [worker.read_counter.remote(n) for n in KERNEL_COUNTERS])))
+    driver = local_counts()
+    if any(driver.values()):
+        raise RuntimeError(f"the driver launched kernels of the main path: "
+                           f"{driver}")
+    peak = ray_tpu_torch.get(worker.run.remote(_worker_peak))
+    return result, counts, {"driver_wall_s_per_train": wall,
+                            "driver_counts": driver,
+                            "max_memory_allocated": peak}
+
+
 def phase_train(dev):
+    import ray_tpu_torch
     from ray_tpu_torch.models import resnet
-    from ray_tpu_torch.ops import batchnorm as bn
     from ray_tpu_torch.train import Trainer
 
     torch.backends.cudnn.benchmark = True
     trainer = Trainer(_operator_cls(), num_workers=1,
                       config={"steps": STEPS},
                       resources_per_worker={"GPU": 1})
-    n_bn = resnet.num_bn_layers(trainer.workers[0].operator.model)
+    n_bn = ray_tpu_torch.get(trainer.workers[0].run.remote(
+        lambda ops: resnet.num_bn_layers(ops[0].model)))
+    t0 = time.perf_counter()
     trainer.train(num_steps=WARMUP)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    bn.LAUNCHES = 0
-    bn.RELAYOUTS = 0
-    result = trainer.train(num_steps=STEPS)
-    launches, relayouts = bn.LAUNCHES, bn.RELAYOUTS
-    peak = torch.cuda.max_memory_allocated()
+    warm_wall = time.perf_counter() - t0
+    result, counts, meta = measured_train(trainer, STEPS)
     trainer.shutdown()
     del trainer
     torch.cuda.empty_cache()
     raw_img_s, raw_losses = _raw_img_s(dev)
     img_s = result["samples_per_s"]
+    launches = int(counts["bn_bwd_sums"])
     fields = {"img_s": img_s, "raw_img_s": raw_img_s,
               "framework_fraction": img_s / raw_img_s, "batch": BATCH,
               "steps": STEPS, "last_train_loss": result["last_train_loss"],
               "train_loss": result["train_loss"],
-              "raw_last_loss": raw_losses[-1],
-              "max_memory_allocated": peak, "bn_layers": n_bn,
+              "raw_last_loss": raw_losses[-1], "bn_layers": n_bn,
               "bn_bwd_sums_launches": launches,
-              "dy_relayouts_per_step": relayouts / STEPS}
+              "dy_relayouts_per_step": counts["bn_dy_relayouts"] / STEPS,
+              "worker_s_per_epoch": BATCH * STEPS / img_s,
+              "driver_wall_s_per_warmup_train": warm_wall, **meta}
     emit("train", **fields)
     finite = all(math.isfinite(v) for v in (result["train_loss"],
                                             result["last_train_loss"]))
@@ -732,23 +923,6 @@ def _gpt_tokens(dev, batch, cfg, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     return torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq),
                          generator=gen, device=dev)
-
-
-def _counts():
-    from ray_tpu_torch.ops import attention as att
-    from ray_tpu_torch.ops import layernorm as ln
-
-    return {"layernorm": ln.LAYERNORM_LAUNCHES,
-            "rmsnorm": ln.RMSNORM_LAUNCHES, "flash_attn_fwd": att.LAUNCHES,
-            "dense_routes": att.DENSE_ROUTES}
-
-
-def _zero_counts():
-    from ray_tpu_torch.ops import attention as att
-    from ray_tpu_torch.ops import layernorm as ln
-
-    ln.LAYERNORM_LAUNCHES = ln.RMSNORM_LAUNCHES = 0
-    att.LAUNCHES = att.DENSE_ROUTES = 0
 
 
 def _gpt_one_step(dev, cfg, tokens, layer_errs=None):
@@ -793,9 +967,11 @@ def phase_gpt2_step(dev):
         cfg = gpt2_config(dtype, "kernel")
         tokens = _gpt_tokens(dev, batch, cfg, seed=1)
         layer_errs = {"layernorm": [], "flash_attn_fwd": []}
-        _zero_counts()
+        zero_counts()
         lk, gk = _gpt_one_step(dev, cfg, tokens, layer_errs)
-        launches = _counts()
+        launches = {k: v for k, v in local_counts().items()
+                    if k in ("layernorm", "flash_attn_fwd",
+                             "flash_dense_routes")}
         lp, gp = _gpt_one_step(dev, gpt2_config(dtype, "plain"), tokens)
         errs = {
             "loss": abs(lk - lp) / abs(lp),
@@ -812,7 +988,7 @@ def phase_gpt2_step(dev):
                                       for k, v in layer_errs.items()}}
         ok = (launches["layernorm"] == n_ln
               and launches["flash_attn_fwd"] == n_flash
-              and launches["dense_routes"] == 0
+              and launches["flash_dense_routes"] == 0
               and all(errs[k] <= tol[k] for k in tol))
         if not ok:
             emit("gpt2_step", failed=key, **out)
@@ -836,6 +1012,9 @@ def gpt2_operator_cls():
 
     class Op(TrainingOperator):
         def setup(self, config):
+            from torch.backends import cudnn
+
+            cudnn.benchmark = True
             cfg = gpt2_config()
             self.register(
                 model=transformer.GPT(cfg, seed=0), optimizer=_adamw,
@@ -876,6 +1055,7 @@ def _raw_tokens_s(dev):
 
 
 def phase_train_gpt2(dev):
+    import ray_tpu_torch
     from ray_tpu_torch.models import transformer
     from ray_tpu_torch.train import Trainer
 
@@ -883,32 +1063,34 @@ def phase_train_gpt2(dev):
     trainer = Trainer(gpt2_operator_cls(), num_workers=1,
                       config={"steps": STEPS},
                       resources_per_worker={"GPU": 1})
-    n_params = transformer.num_params(trainer.workers[0].operator.model)
+    n_params = ray_tpu_torch.get(trainer.workers[0].run.remote(
+        lambda ops: transformer.num_params(ops[0].model)))
+    t0 = time.perf_counter()
     trainer.train(num_steps=WARMUP)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _zero_counts()
-    result = trainer.train(num_steps=STEPS)
-    launches = _counts()
-    peak = torch.cuda.max_memory_allocated()
+    warm_wall = time.perf_counter() - t0
+    result, counts, meta = measured_train(trainer, STEPS)
     trainer.shutdown()
     del trainer
     torch.cuda.empty_cache()
     raw_tokens_s, raw_losses = _raw_tokens_s(dev)
     tokens_s = result["samples_per_s"] * cfg.max_seq
     n_ln, n_flash = gpt2_launches_per_step(cfg)
+    launches = {k: int(counts[k]) for k in ("layernorm", "rmsnorm",
+                                            "flash_attn_fwd",
+                                            "flash_dense_routes")}
     emit("train_gpt2", tokens_s=tokens_s, raw_tokens_s=raw_tokens_s,
          framework_fraction=tokens_s / raw_tokens_s, batch=GPT_BATCH,
          seq=cfg.max_seq, steps=STEPS, params=n_params,
          last_train_loss=result["last_train_loss"],
          train_loss=result["train_loss"], raw_last_loss=raw_losses[-1],
-         max_memory_allocated=peak,
-         launches_per_step={k: v / STEPS for k, v in launches.items()})
+         launches_per_step={k: v / STEPS for k, v in launches.items()},
+         worker_s_per_epoch=GPT_BATCH * cfg.max_seq * STEPS / tokens_s,
+         driver_wall_s_per_warmup_train=warm_wall, **meta)
     finite = all(math.isfinite(v) for v in (result["train_loss"],
                                             result["last_train_loss"]))
     if (launches["layernorm"] != n_ln * STEPS
             or launches["flash_attn_fwd"] != n_flash * STEPS
-            or launches["dense_routes"] != 0 or not finite):
+            or launches["flash_dense_routes"] != 0 or not finite):
         raise RuntimeError(f"train_gpt2: launches {launches} in {STEPS} "
                            f"steps, want {n_ln} layernorm and {n_flash} "
                            f"flash a step and no dense route; loss finite "
@@ -1325,6 +1507,10 @@ def gpt2_dp_operator_cls():
 
     class Op(TrainingOperator):
         def setup(self, config):
+            # the worker's process: TF32 as the caller's check asks
+            from torch.backends import cuda, cudnn
+
+            cuda.matmul.allow_tf32 = cudnn.allow_tf32 = config["tf32"]
             cfg = gpt2_config(config["dtype"])
             self.register(
                 model=transformer.params_from_jax(config["params"], cfg),
@@ -1340,23 +1526,20 @@ def gpt2_dp_operator_cls():
     return Op
 
 
-def _dp_trainer(params, batch, dtype, optimizer, steps, **kwargs):
+def _dp_trainer(params, batch, dtype, optimizer, steps, tf32=True,
+                **kwargs):
     from ray_tpu_torch.train import Trainer
 
     return Trainer(gpt2_dp_operator_cls(), num_workers=DP_WORKERS,
                    collective_transport="pallas",
                    resources_per_worker={"GPU": 1},
                    config={"params": params, "batch": batch, "dtype": dtype,
-                           "optimizer": optimizer, "steps": steps}, **kwargs)
+                           "optimizer": optimizer, "steps": steps,
+                           "tf32": tf32}, **kwargs)
 
 
-def _ring_launches():
-    from ray_tpu_torch.collective.backends import pallas_backend as pb
-
-    return {"ring_allreduce": pb.ALLREDUCE_LAUNCHES,
-            "ring_reducescatter": pb.REDUCESCATTER_LAUNCHES,
-            "ring_allgather": pb.ALLGATHER_LAUNCHES,
-            "quantized_allreduce": pb.QUANTIZED_LAUNCHES}
+RING_COUNTERS = ("ring_allreduce", "ring_reducescatter", "ring_allgather",
+                 "quantized_allreduce")
 
 
 # the collective kernels' names in a profiler trace (csrc
@@ -1365,47 +1548,71 @@ COLLECTIVE_KERNEL_NAMES = ("direct_reduce", "direct_allgather",
                            "quantized_allreduce")
 
 
-def _flat_params(model):
+def _ranks_identical(ops):
+    models = [op.model for op in ops]
+    return all(torch.equal(a, b.to(a.device)) for a, b in zip(
+        models[0].parameters(), models[1].parameters()))
+
+
+def _rank0_flat_params(ops):
     return torch.cat([p.detach().reshape(-1).cpu() for p in
-                      model.parameters()])
+                      ops[0].model.parameters()])
+
+
+def _rank0_grads(ops):
+    """Rank 0's .grad of every parameter (the averaged gradient that
+    _apply_grads leaves there), on the host."""
+    return {n: p.grad.detach().cpu() for n, p in
+            ops[0].model.named_parameters()}
+
+
+def device_times_us(trace_path):
+    """(busy, collective) microseconds of the device in a torch.profiler
+    chrome trace: every kernel, memcpy and memset, and the collective
+    kernels among them."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy = sum(e.get("dur", 0) for e in device)
+    ring = sum(e.get("dur", 0) for e in device
+               if any(k in e.get("name", "") for k in COLLECTIVE_KERNEL_NAMES))
+    return busy, ring
 
 
 def _dp_run(params, label, **kwargs):
-    """One run of the DP main path: warm-up, a timed epoch with launches
-    counted, a profiled epoch; returns its fields and rank 0's weights."""
-    from torch.profiler import ProfilerActivity, profile
+    """One run of the DP main path on a trainer of its own (_dp_measure)."""
+    return _dp_measure(
+        _dp_trainer(params, GPT_BATCH, torch.bfloat16, _adamw,
+                    WARMUP + DP_STEPS + DP_PROFILE_STEPS, **kwargs), label)
 
-    from ray_tpu_torch.collective import metrics as cm
-    from ray_tpu_torch.collective.backends import pallas_backend as pb
+
+def _dp_measure(trainer, label):
+    """Warm-up, a timed epoch with launches counted in the worker, an
+    epoch profiled in the worker (train(profile_dir=)); returns its
+    fields and rank 0's weights, and shuts the trainer down."""
+    import glob
+    import tempfile
+
+    import ray_tpu_torch
 
     cfg = gpt2_config()
-    trainer = _dp_trainer(params, GPT_BATCH, torch.bfloat16, _adamw,
-                          WARMUP + DP_STEPS + DP_PROFILE_STEPS, **kwargs)
+    worker = trainer.workers[0]
     warm = trainer.train(num_steps=WARMUP)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _zero_counts()
-    pb.reset_launches()
-    saved0 = cm.QUANT_SAVED
-    result = trainer.train(num_steps=DP_STEPS)
-    launches = {**_ring_launches(), **_counts()}
-    saved = cm.QUANT_SAVED - saved0
-    peak = torch.cuda.max_memory_allocated()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        profiled = trainer.train(num_steps=DP_PROFILE_STEPS)
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.device_time_total for e in kernels)
-    ring = sum(e.device_time_total for e in kernels
-               if any(k in e.name for k in COLLECTIVE_KERNEL_NAMES))
-    models = [w.operator.model for w in trainer.workers]
-    ranks_identical = all(torch.equal(a, b.to(a.device)) for a, b in zip(
-        models[0].parameters(), models[1].parameters()))
-    weights = _flat_params(models[0])
+    result, counts, meta = measured_train(trainer, DP_STEPS)
+    launches = {k: int(counts[k]) for k in (*RING_COUNTERS, "layernorm",
+                                            "flash_attn_fwd",
+                                            "flash_dense_routes")}
+    saved = counts["collective.quantized_bytes_saved_total"]
+    with tempfile.TemporaryDirectory(dir=".") as trace_dir:
+        profiled = trainer.train(num_steps=DP_PROFILE_STEPS,
+                                 profile_dir=trace_dir)
+        busy, ring = device_times_us(
+            glob.glob(os.path.join(trace_dir, "*.json"))[0])
+    ranks_identical = ray_tpu_torch.get(worker.run.remote(_ranks_identical))
+    weights = ray_tpu_torch.get(worker.run.remote(_rank0_flat_params))
     trainer.shutdown()
-    del trainer, models
-    torch.cuda.empty_cache()
+    del trainer
     per_rank_step = DP_WORKERS * DP_STEPS
     fields = {
         "run": label, "tokens_s": result["samples_per_s"] * cfg.max_seq,
@@ -1417,12 +1624,13 @@ def _dp_run(params, label, **kwargs):
         "device_busy_ms_per_step": busy / 1e3 / DP_PROFILE_STEPS,
         "wall_ms_per_step_profiled": (DP_WORKERS * GPT_BATCH
                                       / profiled["samples_per_s"] * 1e3),
-        "max_memory_allocated": peak,
+        "worker_s_per_epoch": (DP_WORKERS * GPT_BATCH * DP_STEPS
+                               / result["samples_per_s"]),
         "warmup_last_loss": warm["last_train_loss"],
         "train_loss": result["train_loss"],
         "last_train_loss": result["last_train_loss"],
         "quant_saved_bytes_per_rank_step": saved / per_rank_step,
-        "ranks_bit_identical": ranks_identical}
+        "ranks_bit_identical": ranks_identical, **meta}
     return fields, launches, weights
 
 
@@ -1431,15 +1639,17 @@ def _dp_f32_check(dev, params):
     step at the combined batch, from the same weights (TF32 off)."""
     from ray_tpu_torch.models import transformer
 
+    import ray_tpu_torch
+
     tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     trainer = _dp_trainer(params, DP_F32_BATCH, torch.float32,
-                          lambda ps: torch.optim.SGD(ps, lr=0.0), 1)
+                          lambda ps: torch.optim.SGD(ps, lr=0.0), 1,
+                          tf32=False)
     trainer.train(num_steps=1)
-    # _apply_grads leaves the averaged gradient in each .grad
-    dp = {n: p.grad.detach().clone() for n, p in
-          trainer.workers[0].operator.model.named_parameters()}
+    dp = {n: g.to(dev) for n, g in ray_tpu_torch.get(
+        trainer.workers[0].run.remote(_rank0_grads)).items()}
     trainer.shutdown()
     cfg = gpt2_config(torch.float32)
     model = transformer.params_from_jax(params, cfg).to(dev)
@@ -1486,10 +1696,10 @@ def phase_train_gpt2_dp(dev):
         emit("train_gpt2_dp", **fields)
         per = fields["launches_per_rank_step"]
         ok = (all(per[k] == want_ring[label].get(k, 0)
-                  for k in _ring_launches())
+                  for k in RING_COUNTERS)
               and per["layernorm"] == n_ln
               and per["flash_attn_fwd"] == n_flash
-              and launches["dense_routes"] == 0
+              and launches["flash_dense_routes"] == 0
               and fields["ranks_bit_identical"]
               and all(math.isfinite(fields[k]) for k in
                       ("train_loss", "last_train_loss")))
@@ -1549,6 +1759,8 @@ def main():
         return 2
     import ray_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    import ray_tpu_torch
+
     dev = torch.device("cuda", 0)
     smi = phase_device()
     phase_build()
@@ -1556,10 +1768,15 @@ def main():
                **phase_transformer_kernels(dev)}
     summary.update(phase_collectives(dev))
     phase_resnet50_step(dev)
-    launches = {"bn_bwd_sums": phase_train(dev)}
     phase_gpt2_step(dev)
-    launches.update(phase_train_gpt2(dev))
-    launches.update(phase_train_gpt2_dp(dev))
+    torch.cuda.empty_cache()
+    try:
+        phase_runtime(dev, smi)
+        launches = {"bn_bwd_sums": phase_train(dev)}
+        launches.update(phase_train_gpt2(dev))
+        launches.update(phase_train_gpt2_dp(dev))
+    finally:
+        ray_tpu_torch.shutdown()
     print(smi)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,

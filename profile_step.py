@@ -5,19 +5,23 @@ Run from the root of a checkout (after, or without, chip_smoke.py):
 
     python3 profile_step.py [--model resnet50|gpt2]
 
-It trains the model through `ray_tpu_torch.train.Trainer` exactly as
-chip_smoke.py's train phases do (resnet50: batch 256, 224², bf16,
-bn_mode="kernel"; gpt2: GPT-2 124M, batch 12 x 1024 tokens, bf16,
-ops_mode="kernel", AdamW), warms up, then traces one epoch of STEPS steps
-of its worker with torch.profiler and prints one JSON line: the wall time
+It starts the port's runtime and trains the model through
+`ray_tpu_torch.train.Trainer` exactly as chip_smoke.py's train phases do
+(resnet50: batch 256, 224², bf16, bn_mode="kernel"; gpt2: GPT-2 124M,
+batch 12 x 1024 tokens, bf16, ops_mode="kernel", AdamW), warms up, then
+traces one epoch of STEPS steps in its worker actor with torch.profiler
+(`train(profile_dir=)`, a chrome trace) and prints one JSON line: the wall time
 per step (the epoch's own clock, profiler on), the device's busy time per
 step (sum of kernel times; one stream) and idle share, device time per
 kernel group, and the top kernels by device time. Without CUDA it exits 2.
 """
 
 import argparse
+import glob
 import json
+import os
 import sys
+import tempfile
 
 import torch
 
@@ -53,9 +57,8 @@ def main():
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 2
-    from torch.profiler import ProfilerActivity, profile
-
     import chip_smoke
+    import ray_tpu_torch
     from ray_tpu_torch.train import Trainer
 
     if model == "resnet50":
@@ -65,24 +68,28 @@ def main():
     else:
         op_cls, batch = chip_smoke.gpt2_operator_cls(), chip_smoke.GPT_BATCH
         per_sample = chip_smoke.gpt2_config().max_seq
-    trainer = Trainer(op_cls, num_workers=1, config={"steps": STEPS},
-                      resources_per_worker={"GPU": 1})
-    trainer.train(num_steps=chip_smoke.WARMUP)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        # the worker's epoch: Trainer.train without its state snapshot
-        result = trainer.workers[0].train_epoch(STEPS)
+    ray_tpu_torch.init(object_store_memory=chip_smoke.STORE_BYTES)
+    try:
+        trainer = Trainer(op_cls, num_workers=1, config={"steps": STEPS},
+                          resources_per_worker={"GPU": 1})
+        trainer.train(num_steps=chip_smoke.WARMUP)
+        with tempfile.TemporaryDirectory(dir=".") as trace_dir:
+            # the worker's epoch, its clock and its trace
+            result = trainer.train(num_steps=STEPS, profile_dir=trace_dir)
+            with open(glob.glob(os.path.join(trace_dir, "*.json"))[0]) as f:
+                events = json.load(f)["traceEvents"]
+        trainer.shutdown()
+    finally:
+        ray_tpu_torch.shutdown()
     wall_ms = batch / result["samples_per_s"] * 1e3
-    trainer.shutdown()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.device_time_total for e in kernels)
+    kernels = [e for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy_us = sum(e.get("dur", 0) for e in kernels)
     per_group, per_name = {}, {}
     for e in kernels:
-        g = group_of(e.name)
-        per_group[g] = per_group.get(g, 0.0) + e.device_time_total
-        per_name[e.name] = per_name.get(e.name, 0.0) + e.device_time_total
+        g = group_of(e["name"])
+        per_group[g] = per_group.get(g, 0.0) + e.get("dur", 0)
+        per_name[e["name"]] = per_name.get(e["name"], 0.0) + e.get("dur", 0)
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:15]
     smi = chip_smoke.subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -4,14 +4,16 @@ init_collective_group :93, create_collective_group :126, allreduce :226,
 barrier :266, reduce :279, allgather :391, reducescatter).
 
 How a caller names its rank. In the JAX package each rank is a process,
-and a group name resolves to the calling process's rank. The port has no
-runtime yet (ROADMAP.md A4), so every rank of a group lives in this
+and a group name resolves to the calling process's rank. Here the ring
+kernels need every rank of a group in one address space until they
+cross processes (ROADMAP.md A5), so every rank of a group lives in one
 process: `init_collective_group(world_size, rank, ...)` is called once
 per rank (as each actor calls it in the reference) and returns that
 rank's `RankHandle`. The handle carries the rank's device and CUDA stream
 and has the op methods; the module functions take the same arguments as
 the reference's plus a keyword `rank=` and go through the handle of that
-rank. A `TrainWorker` holds its rank's handle.
+rank. A `TrainWorker` actor hosts the ranks of its trainer and holds
+their handles.
 
 Rank r of a CUDA group sits on cuda:(r % torch.cuda.device_count()): on
 a machine with one card every rank shares it, each on its own stream;
@@ -24,8 +26,9 @@ longer than the group's timeout for a peer.
 
 Transports: "auto" and "pallas" are the fused ring kernels
 (backends/pallas_backend.py), for every payload size. "device" (the XLA
-tier, NCCL in the port) is ROADMAP.md A5; the runtime's host tiers
-("hub", "ring", "ring_unpipelined", "shm") are A4.
+tier, NCCL in the port) and the runtime's host tiers ("hub", "ring",
+"ring_unpipelined", "shm"), which carry ranks in processes of their own,
+are ROADMAP.md A5.
 """
 
 from __future__ import annotations
@@ -62,8 +65,9 @@ def resolve_transport(transport) -> Transport:
             "collective transport 'device' (the XLA tier, NCCL here) is "
             "ROADMAP.md A5; this port carries every op on 'pallas'")
     raise NotImplementedError(
-        f"collective transport {t.value!r} is a host tier of the runtime, "
-        "which is ROADMAP.md A4; this port carries every op on 'pallas'")
+        f"collective transport {t.value!r} is a host tier of the runtime "
+        "for ranks in processes of their own, which is ROADMAP.md A5; "
+        "this port carries every op on 'pallas'")
 
 
 class CollectiveGroup:

@@ -33,8 +33,8 @@ class Transport(str, enum.Enum):
           fall-through to DEVICE come with ROADMAP.md A5 and A9.
     DEVICE — the device plane of the JAX package (XLA collectives); its
           port, over NCCL, is ROADMAP.md A5.
-    HUB, RING, RING_UNPIPELINED, SHM — the runtime's host tiers; they
-          need the runtime, ROADMAP.md A4.
+    HUB, RING, RING_UNPIPELINED, SHM — the runtime's host tiers, for
+          ranks in processes of their own: ROADMAP.md A5.
     AUTO — PALLAS in this port.
     """
 

@@ -50,6 +50,11 @@ class ResNetConfig:
     dtype: torch.dtype = torch.bfloat16
     small_images: bool = False   # CIFAR stem: 3x3/1 conv, no maxpool
     bn_mode: str = "plain"       # "plain" | "kernel"
+    # "s2d": the stem conv in 2x2 space-to-depth layout (the MLPerf TPU
+    # trick of the JAX package): the same parameters and outputs, as a
+    # 4x4 stride-1 conv over 12 channels instead of a 7x7 stride-2 conv
+    # over 3
+    stem_mode: str = "standard"
 
 
 def resnet18(num_classes=1000, **kw) -> ResNetConfig:
@@ -87,6 +92,30 @@ def _conv(x, w, stride=1):
     if ph[0] == ph[1] and pw[0] == pw[1]:
         return F.conv2d(x, w, stride=stride, padding=(ph[0], pw[0]))
     return F.conv2d(F.pad(x, (pw[0], pw[1], ph[0], ph[1])), w, stride=stride)
+
+
+def _stem_s2d(x, w):
+    """The 7x7/2 SAME stem conv of NCHW x, computed in 2x2 space-to-depth
+    layout, as the JAX package's `_stem_s2d`: for even H and W, SAME pads
+    (2, 3), so output i reads input pixels 2i-2..2i+4; with the kernel
+    padded to 8 taps (zeros at the end) that is blocks i-1..i+2 of the
+    2x2 layout, a 4-tap stride-1 conv over blocks padded (1, 2)."""
+    n, c, h, w_ = x.shape
+    if h % 2 or w_ % 2:
+        raise ValueError(
+            f"stem_mode='s2d' needs even input H/W (got {h}x{w_}): the "
+            "2x2 space-to-depth equivalence only holds for even sizes — "
+            "use stem_mode='standard' for odd inputs")
+    # [N,C,H,W] -> [N,(dy,dx,c),H/2,W/2], the JAX package's channel order
+    x2 = x.reshape(n, c, h // 2, 2, w_ // 2, 2).permute(0, 3, 5, 1, 2, 4)
+    x2 = x2.reshape(n, 4 * c, h // 2, w_ // 2).contiguous(
+        memory_format=torch.channels_last)
+    # [O,C,7,7] -> zero-pad to [O,C,8,8] -> block form [O,(dy,dx,c),4,4]
+    cout = w.shape[0]
+    k = F.pad(w, (0, 1, 0, 1)).reshape(cout, c, 4, 2, 4, 2)
+    k = k.permute(0, 3, 5, 1, 2, 4).reshape(cout, 4 * c, 4, 4)
+    k = k.to(dtype=x.dtype, memory_format=torch.channels_last)
+    return F.conv2d(F.pad(x2, (1, 2, 1, 2)), k)
 
 
 def _max_pool_same(x):
@@ -213,7 +242,10 @@ class ResNet(nn.Module):
     def forward(self, x):
         cfg = self.cfg
         x = x.to(cfg.dtype).permute(0, 3, 1, 2)
-        y = _conv(x, self.stem_conv, 1 if cfg.small_images else 2)
+        if cfg.stem_mode == "s2d" and not cfg.small_images:
+            y = _stem_s2d(x, self.stem_conv)
+        else:
+            y = _conv(x, self.stem_conv, 1 if cfg.small_images else 2)
         y = F.relu(self.stem_bn(y))
         if not cfg.small_images:
             y = _max_pool_same(y)

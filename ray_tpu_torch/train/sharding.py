@@ -12,7 +12,7 @@ reduce-scatter:
 - optimizer state is the user's optimizer over the rank's flat span.
 
 `merge_opt_shards` and `reshard_opt_shards` (elastic resizes) wait for
-ROADMAP.md A4/A5.
+ROADMAP.md A4 (Trainer.save/load and the elastic resize).
 """
 
 from __future__ import annotations

@@ -1,91 +1,195 @@
 """Trainer and TrainWorker; port of ray_tpu/train/trainer.py (reference:
 python/ray/util/sgd/torch/torch_trainer.py).
 
-The JAX Trainer runs each TrainWorker as an actor of the ray_tpu runtime
-and moves weights and metrics over its object store. The port keeps its
-own copy of what it needs and has not ported that runtime yet (ROADMAP.md
-A4), so here the Trainer holds its TrainWorkers in the calling process.
-With num_workers > 1 they are the ranks of one collective group of this
-process (collective/collective.py): rank r on cuda:(r % device_count),
-each on its own CUDA stream, so on a machine with one card every rank
-shares it. `train()` steps the ranks in lockstep: step k's collective of
-every rank is launched before any rank goes on past its own, and the
-host syncs once per epoch. The surface is the JAX one: `train`,
+The ranks run in a `TrainWorker` actor of the port's runtime, a process
+of its own that the raylet pins to the cards of its lease
+(CUDA_VISIBLE_DEVICES); the driver holds no rank, and weights, results
+and metrics cross the object store. Call `ray_tpu_torch.init()` first.
+
+One rank is one actor with {"GPU": 1} ({"CPU": 1} for device="cpu"),
+exactly the reference's TrainWorker. N > 1 ranks are the ranks of one
+collective group, whose ring kernels need every rank in one address
+space until the collective tier crosses processes (ROADMAP.md A5), so
+one TrainWorker hosts all of them, as the reference runs one actor per
+host with the device collectives inside it: it takes {"GPU": g} for the
+g distinct cards its ranks use, rank r sits on cuda:(r % g), each on its
+own CUDA stream, and `train_epoch` steps the ranks in lockstep (step k's
+collective of every rank is launched before any rank goes on past its
+own; operator.lockstep). The surface is the JAX one: `train`,
 `validate`, `state_dict`, `load_state_dict`, `shutdown`, and `_reduce`
-over worker results.
+over the ranks' results.
 """
 
 from __future__ import annotations
 
+import importlib
 import itertools
+import os
+import pickle
+import time
 
-import torch
+import cloudpickle
 
-from ray_tpu_torch._private.device import resolve_device
+import ray_tpu_torch
+from ray_tpu_torch._private.device import check_device, resolve_device
 from ray_tpu_torch.collective import collective as col
 from ray_tpu_torch.collective.types import normalize_quantize
 from ray_tpu_torch.train.operator import lockstep
 
 _GROUP_IDS = itertools.count()
 
+# The kernels' launch counters are module globals of the ops modules, so
+# they count in the process that launches them: the worker's. Name ->
+# (module, attribute), as TrainWorker.read_counter reads them.
+KERNEL_COUNTERS = {
+    "bn_bwd_sums": ("ray_tpu_torch.ops.batchnorm", "LAUNCHES"),
+    "bn_dy_relayouts": ("ray_tpu_torch.ops.batchnorm", "RELAYOUTS"),
+    "layernorm": ("ray_tpu_torch.ops.layernorm", "LAYERNORM_LAUNCHES"),
+    "rmsnorm": ("ray_tpu_torch.ops.layernorm", "RMSNORM_LAUNCHES"),
+    "flash_attn_fwd": ("ray_tpu_torch.ops.attention", "LAUNCHES"),
+    "flash_dense_routes": ("ray_tpu_torch.ops.attention", "DENSE_ROUTES"),
+    "ring_allreduce": ("ray_tpu_torch.collective.backends.pallas_backend",
+                       "ALLREDUCE_LAUNCHES"),
+    "ring_reducescatter": (
+        "ray_tpu_torch.collective.backends.pallas_backend",
+        "REDUCESCATTER_LAUNCHES"),
+    "ring_allgather": ("ray_tpu_torch.collective.backends.pallas_backend",
+                       "ALLGATHER_LAUNCHES"),
+    "quantized_allreduce": (
+        "ray_tpu_torch.collective.backends.pallas_backend",
+        "QUANTIZED_LAUNCHES"),
+    "collective.quantized_bytes_saved_total": (
+        "ray_tpu_torch.collective.metrics", "QUANT_SAVED"),
+}
+
 
 class TrainWorker:
-    """Wraps one TrainingOperator (reference: distributed_torch_runner.py
-    DistributedTorchRunner)."""
+    """Actor hosting the ranks of one node, one TrainingOperator each
+    (reference: distributed_torch_runner.py DistributedTorchRunner)."""
 
-    def __init__(self, operator_cls, config: dict, world_rank: int,
-                 world_size: int, device: torch.device,
-                 group_name: str | None = None):
-        self._operator_cls = operator_cls
+    def __init__(self, operator_cls_pickled: bytes, config: dict,
+                 world_size: int, device: str | None, num_cpus: float,
+                 group: dict | None):
+        self._operator_cls = pickle.loads(operator_cls_pickled)
         self._config = config
-        self._rank = world_rank
         self._world_size = world_size
         self._device = device
-        self._group_name = group_name
-        self.handle = None
-        self.operator = None
+        self._num_cpus = num_cpus
+        self._group = group
+        self.operators: list = []
 
-    def init_collective_group(self, world_size, rank, backend, group_name,
-                              timeout, quantize, transport):
-        """Joins the worker's rank to the group (reference: the actor's
-        __ray_collective_init__)."""
-        self.handle = col.init_collective_group(
-            world_size, rank, backend, group_name, timeout, transport,
-            quantize, device=self._device)
-        return True
+    def setup_operator(self) -> int:
+        """Builds the ranks (and their collective group); returns the
+        worker's pid, which Trainer.shutdown waits on. A CPU worker
+        computes on the CPUs it leased: torch's threads are that many, so
+        its float sums keep one order whatever else runs on the host."""
+        if self._device == "cpu":
+            import torch
 
-    def setup_operator(self):
-        self.operator = self._operator_cls(
-            self._config, self._rank, self._world_size, device=self._device,
-            group_name=self._group_name)
-        return True
+            torch.set_num_threads(max(1, int(self._num_cpus)))
+        if self._group is None:
+            self.operators = [self._operator_cls(
+                self._config, 0, 1, device=resolve_device(self._device))]
+            return os.getpid()
+        devices = col.rank_devices(self._world_size, self._device)
+        name = self._group["group_name"]
+        for r, dev in enumerate(devices):
+            col.init_collective_group(
+                self._world_size, r, "host", name, self._group["timeout"],
+                self._group["transport"], self._group["quantize"],
+                device=dev)
+        self.operators = [
+            self._operator_cls(self._config, r, self._world_size,
+                               device=dev, group_name=name)
+            for r, dev in enumerate(devices)]
+        return os.getpid()
 
-    def train_epoch(self, num_steps=None):
-        return self.operator.train_epoch(num_steps)
+    def train_epoch(self, num_steps=None, profile_dir=None) -> list[dict]:
+        """One epoch of every rank, in lockstep; each rank's result. With
+        profile_dir, a torch.profiler chrome trace of the epoch goes to
+        profile_dir/train_epoch_<epoch>.json."""
+        stages = [op.train_epoch_stages(num_steps) for op in self.operators]
+        if not profile_dir:
+            return lockstep(stages)
+        from torch.profiler import ProfilerActivity, profile
 
-    def train_epoch_stages(self, num_steps=None):
-        return self.operator.train_epoch_stages(num_steps)
+        activities = [ProfilerActivity.CPU]
+        if self.operators[0].device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            results = lockstep(stages)
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            profile_dir, f"train_epoch_{self.operators[0].epoch}.json"))
+        return results
 
-    def validate(self, num_steps=None):
-        return self.operator.validate(num_steps)
+    def validate(self, num_steps=None) -> list[dict]:
+        return [op.validate(num_steps) for op in self.operators]
 
     def state_dict(self):
-        return self.operator.state_dict()
+        return self.operators[0].state_dict()
 
     def load_state_dict(self, state):
-        self.operator.load_state_dict(state)
+        for op in self.operators:
+            op.load_state_dict(state)
         return True
 
+    def opt_shard_state(self) -> list[dict]:
+        return [op.opt_shard_state() for op in self.operators]
+
+    def load_opt_shard(self, shards: list[dict]):
+        for op, shard in zip(self.operators, shards):
+            op.load_opt_shard(shard)
+        return True
+
+    def read_counter(self, name: str) -> float:
+        """A counter of this worker's process: a kernel's launches
+        (KERNEL_COUNTERS, summed over the ranks it hosts) or a runtime
+        metric."""
+        if name in KERNEL_COUNTERS:
+            module, attr = KERNEL_COUNTERS[name]
+            return float(getattr(importlib.import_module(module), attr))
+        from ray_tpu_torch._private import stats
+
+        snap = stats.snapshot().get(name)
+        return float(snap["value"]) if snap else 0.0
+
+    def read_metric(self, name: str):
+        """Full metric snapshot (histograms/gauges, not just counter
+        values)."""
+        from ray_tpu_torch._private import stats
+
+        return stats.snapshot().get(name)
+
+    def peak_rss(self) -> int:
+        """Peak RSS of this worker process in bytes."""
+        import resource
+        import sys
+
+        ru = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        return int(ru if sys.platform == "darwin" else ru * 1024)
+
+    def run(self, fn):
+        """fn(operators), the ranks' TrainingOperators in rank order, run
+        in this worker's process: for checks and tools that must see a
+        rank's model or its process state (device memory, counters)."""
+        return fn(self.operators)
+
     def shutdown(self):
-        self.operator = None
+        """Waits for the ranks' work, frees the group, and ends the
+        process (its card memory goes with it)."""
+        if self._group is not None:
+            col.destroy_collective_group(self._group["group_name"])
+        self.operators = []
+        ray_tpu_torch.exit_actor()
 
 
 class Trainer:
     """Data-parallel trainer (reference: torch_trainer.py:39).
 
     device: None runs on CUDA and raises without it; "cpu" must be asked
-    for by name. resources_per_worker names what a worker holds; a CUDA
-    worker needs {"GPU": 1}, and no more GPUs than the machine has.
+    for by name. resources_per_worker names what one rank holds; a CUDA
+    rank needs {"GPU": 1}, and no more GPUs than the cluster has.
 
     num_workers > 1: the ranks of one collective group over
     `collective_transport` ("auto" and "pallas": the fused ring kernels;
@@ -100,6 +204,7 @@ class Trainer:
                  config: dict | None = None,
                  resources_per_worker: dict | None = None,
                  collective_timeout: float = 30.0,
+                 setup_timeout: float = 600.0,
                  quantize: str | None = None,
                  collective_transport: str = "auto",
                  sharded: bool = False, mesh_mode: str | None = None,
@@ -107,6 +212,7 @@ class Trainer:
         if num_workers < 1:
             raise ValueError(f"num_workers must be >= 1, got {num_workers}")
         self._config = dict(config or {})
+        self._sharded = bool(sharded)
         if sharded:
             if mesh_mode is not None:
                 raise ValueError(
@@ -119,70 +225,128 @@ class Trainer:
                 "(ROADMAP.md queue A item 5)")
         quantize = normalize_quantize(quantize)
         col.resolve_transport(collective_transport)
-        self._device = resolve_device(device)
-        on_cuda = self._device.type == "cuda"
-        resources = resources_per_worker or ({"GPU": 1} if on_cuda
-                                             else {"CPU": 1})
+        on_cuda = check_device(device).type == "cuda"
+        resources = dict(resources_per_worker or (
+            {"GPU": 1} if on_cuda else {"CPU": 1}))
         gpus = resources.get("GPU", 0)
-        if gpus > torch.cuda.device_count():
-            raise ValueError(
-                f"resources_per_worker asks for {gpus} GPU(s); this machine "
-                f"has {torch.cuda.device_count()}")
         if on_cuda and gpus < 1:
             raise ValueError(
-                f"a worker on {self._device} needs resources_per_worker "
-                "{'GPU': 1}")
+                "a worker on CUDA needs resources_per_worker {'GPU': 1}")
+        nodes = ray_tpu_torch.nodes()
+        node_gpus = max((n["Resources"].get("GPU", 0) for n in nodes),
+                        default=0)
+        if gpus > node_gpus:
+            raise ValueError(
+                f"resources_per_worker asks for {gpus} GPU(s); no node of "
+                f"the cluster has more than {node_gpus}")
+        if gpus and num_workers * gpus > node_gpus and len(nodes) > 1:
+            raise NotImplementedError(
+                f"{num_workers} ranks of {gpus} GPU(s) need more than one "
+                "node; ranks across nodes are ROADMAP.md A5")
+        if gpus and num_workers > 1:
+            # the distinct cards the ranks use: rank r on cuda:(r % g)
+            resources["GPU"] = min(num_workers * gpus, node_gpus)
+        self._num_workers = num_workers
         self._last_state: dict | None = None
-        if num_workers == 1:
-            self._group_name = None
-            devices = [self._device]
-        else:
-            self._group_name = f"trainer_{next(_GROUP_IDS)}"
-            devices = col.rank_devices(num_workers,
-                                       None if on_cuda else self._device)
-        self.workers = [TrainWorker(training_operator_cls, self._config, r,
-                                    num_workers, devices[r],
-                                    self._group_name)
-                        for r in range(num_workers)]
+        self._last_shards: list | None = None
+        group = None
+        if num_workers > 1:
+            group = {"group_name": f"trainer_{next(_GROUP_IDS)}",
+                     "timeout": collective_timeout,
+                     "transport": collective_transport,
+                     "quantize": quantize}
+        # cloudpickle: operator classes defined in __main__ serialize by
+        # value (stdlib pickle would import them by reference and fail on
+        # the worker)
+        worker_cls = ray_tpu_torch.remote(resources=resources)(TrainWorker)
+        self.workers = [worker_cls.remote(
+            cloudpickle.dumps(training_operator_cls), self._config,
+            num_workers, None if on_cuda else "cpu",
+            resources.get("CPU", 1), group)]
+        self._pids: list[int] = []
         try:
-            if self._group_name is not None:
-                col.create_collective_group(
-                    self.workers, num_workers, list(range(num_workers)),
-                    backend="host", group_name=self._group_name,
-                    timeout=collective_timeout, quantize=quantize,
-                    transport=collective_transport)
-            for w in self.workers:
-                w.setup_operator()
+            self._pids = ray_tpu_torch.get(
+                [w.setup_operator.remote() for w in self.workers],
+                timeout=setup_timeout)
         except BaseException:
             self.shutdown()
             raise
 
-    def train(self, num_steps: int | None = None) -> dict:
-        """One epoch on every worker, in lockstep; the mean of their
-        results (sums of counts and throughput)."""
-        results = lockstep([w.train_epoch_stages(num_steps)
-                            for w in self.workers])
-        self._last_state = self.workers[0].state_dict()
-        return _reduce(results)
+    def train(self, num_steps: int | None = None,
+              reduce_results: bool = True, profile_dir: str | None = None):
+        """One epoch of every rank; the mean of their results (sums of
+        counts and throughput). Rank 0's state_dict comes back after it,
+        as in the reference."""
+        kw = {"profile_dir": profile_dir} if profile_dir else {}
+        results = self._gather("train_epoch", num_steps, **kw)
+        self._last_state = self.state_dict()
+        if self._sharded:
+            self._last_state.pop("opt_shard", None)
+            self._last_shards = [s for w in ray_tpu_torch.get(
+                [w.opt_shard_state.remote() for w in self.workers],
+                timeout=120) for s in w]
+        return _reduce(results) if reduce_results else results
 
-    def validate(self, num_steps: int | None = None) -> dict:
-        return _reduce([w.validate(num_steps) for w in self.workers])
+    def validate(self, num_steps: int | None = None,
+                 reduce_results: bool = True):
+        results = self._gather("validate", num_steps)
+        return _reduce(results) if reduce_results else results
+
+    def _gather(self, method: str, *args, **kw) -> list[dict]:
+        """Every rank's result of a worker method, in rank order."""
+        return [r for rs in ray_tpu_torch.get(
+            [getattr(w, method).remote(*args, **kw) for w in self.workers],
+            timeout=600) for r in rs]
 
     def state_dict(self) -> dict:
-        return self.workers[0].state_dict()
+        return ray_tpu_torch.get(self.workers[0].state_dict.remote(),
+                                 timeout=120)
 
     def load_state_dict(self, state: dict):
         self._last_state = state
-        for w in self.workers:
-            w.load_state_dict(state)
+        ray_tpu_torch.get([w.load_state_dict.remote(state)
+                           for w in self.workers], timeout=120)
 
-    def shutdown(self):
-        """Waits for every rank's work, frees the group and the workers."""
-        if self._group_name is not None:
-            col.destroy_collective_group(self._group_name)
+    @property
+    def num_workers(self) -> int:
+        return self._num_workers
+
+    def shutdown(self, timeout: float = 60.0):
+        """Ends the workers and waits until their processes are gone, so
+        the cards they held are free when this returns."""
         for w in self.workers:
-            w.shutdown()
+            w.shutdown.remote()
+        if not self._pids or not _wait_gone(self._pids, timeout):
+            # a worker whose set-up failed (its pid unknown), or one that
+            # does not end
+            for w in self.workers:
+                ray_tpu_torch.kill(w)
+            if not _wait_gone(self._pids, timeout):
+                raise TimeoutError(
+                    f"worker processes {self._pids} outlived shutdown")
         self.workers = []
+        self._pids = []
+
+
+def _wait_gone(pids: list[int], timeout: float) -> bool:
+    """Waits until no pid is a live process (a zombie has already freed
+    its memory); False at the timeout."""
+    deadline = time.monotonic() + timeout
+    while True:
+        live = []
+        for pid in pids:
+            try:
+                with open(f"/proc/{pid}/stat") as f:
+                    state = f.read().rsplit(")", 1)[1].split()[0]
+            except OSError:
+                continue
+            if state != "Z":
+                live.append(pid)
+        if not live:
+            return True
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.05)
 
 
 def _reduce(results: list[dict]) -> dict:

@@ -323,8 +323,8 @@ def test_group_lifecycle():
 
 @pytest.mark.parametrize("transport,err,match", [
     ("device", NotImplementedError, "A5"),
-    ("ring", NotImplementedError, "A4"),
-    ("shm", NotImplementedError, "A4"),
+    ("ring", NotImplementedError, "A5"),
+    ("shm", NotImplementedError, "A5"),
     ("bogus", ValueError, "bogus")])
 def test_unported_transports_raise(transport, err, match):
     with pytest.raises(err, match=match):

@@ -2,7 +2,8 @@
 
 Three fused SGD-momentum steps (lr 0.1, momentum 0.9, as bench.py) of a
 tiny bottleneck ResNet in float32: through the port's
-`Trainer(device="cpu")` with bn_mode="kernel", and through the JAX
+`Trainer(device="cpu")` with bn_mode="kernel" (its rank in a TrainWorker
+actor of a module-scoped `ray_tpu_torch.init` cluster), and through the JAX
 `TrainingOperator`, instantiated directly as bench.py's `Op` (no runtime,
 no JAX Trainer) with bn_mode="pallas" (the Pallas sums kernel in
 interpret mode). Both start from the same weights in the JAX pytree
@@ -16,15 +17,25 @@ convolutions, oneDNN), about 1e-5 per gradient
 differences forward.
 """
 
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import cloudpickle
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import ray_tpu_torch
 from ray_tpu.models import resnet as jres
 from ray_tpu_torch.models import resnet as tres
 from ray_tpu_torch.train import Trainer, TrainingOperator
+from tests.test_torch_runtime import port_cluster
+
+# the worker builds this module's operator classes from their pickles:
+# by value, so it never imports this module (and with it jax)
+cloudpickle.register_pickle_by_value(sys.modules[__name__])
 
 STEPS = 3
 BATCH = 4
@@ -67,7 +78,8 @@ class PortOp(TrainingOperator):
             optimizer=lambda ps: torch.optim.SGD(ps, lr=0.1, momentum=0.9),
             loss_fn=lambda model, b: tres.loss_fn(model, b[0], b[1]),
             to_tree=tres.params_to_jax, from_tree=tres.load_jax_params)
-        self.register_data(train_loader=_Stream(config["batches"]))
+        self.register_data(train_loader=_Stream(config["batches"]),
+                           validation_loader=config.get("val"))
 
 
 def _jax_op_cls():
@@ -103,19 +115,47 @@ def _leaves(tree):
 
 
 @pytest.fixture(scope="module")
-def runs():
+def cluster():
+    with port_cluster(num_cpus=4):
+        yield
+
+
+def _on_worker(trainer, fn):
+    """fn(operators) run in the trainer's worker process."""
+    return ray_tpu_torch.get(trainer.workers[0].run.remote(fn))
+
+
+@pytest.fixture(scope="module")
+def runs(cluster):
+    """The three steps of each package. The port's trainer goes on to the
+    next batch after them, and its validation loader holds that batch
+    twice; a second port trainer (the clone) has the next batch to train
+    and to validate on. Both trainers' workers start (seconds of torch
+    import each) while the JAX side runs."""
     params, state, batches = _data()
     config = {"params": params, "state": state, "batches": batches[:STEPS]}
-    jop = _jax_op_cls()(config, 0, 1)
-    jax_epochs = [jop.train_epoch(num_steps=1) for _ in range(STEPS)]
-    jop.register_data(validation_loader=[batches[STEPS]])
-    jax_val = jop.validate()
-    trainer = Trainer(PortOp, num_workers=1, config=config, device="cpu")
-    port_epochs = [trainer.train(num_steps=1) for _ in range(STEPS)]
-    return {"jax": {"epochs": jax_epochs, "state": jop.state_dict()},
-            "port": {"epochs": port_epochs, "state": trainer.state_dict()},
-            "trainer": trainer, "config": config, "next": batches[STEPS],
-            "jax_val": jax_val}
+    nxt = batches[STEPS]
+    with ThreadPoolExecutor(2) as pool:
+        made = [pool.submit(Trainer, PortOp, device="cpu", config={
+                    **config, "batches": batches[:STEPS + 1],
+                    "val": [nxt] * 2}),
+                pool.submit(Trainer, PortOp, device="cpu", config={
+                    **config, "batches": [nxt], "val": [nxt]})]
+        jop = _jax_op_cls()(config, 0, 1)
+        jax_epochs = [jop.train_epoch(num_steps=1) for _ in range(STEPS)]
+        jop.register_data(validation_loader=[nxt])
+        jax_val = jop.validate()
+    trainer, clone = (f.result() for f in made)
+    try:
+        port_epochs = [trainer.train(num_steps=1) for _ in range(STEPS)]
+        yield {"jax": {"epochs": jax_epochs, "state": jop.state_dict()},
+               "port": {"epochs": port_epochs,
+                        "state": trainer.state_dict()},
+               "trainer": trainer, "clone": clone, "config": config,
+               "next": nxt, "jax_val": jax_val}
+    finally:
+        trainer.shutdown()
+        clone.shutdown()
 
 
 @pytest.mark.parametrize("step", range(STEPS))
@@ -148,12 +188,12 @@ def test_state_dict_round_trip_resumes_identically(runs):
     """A second trainer loaded from the first's state_dict takes the next
     step exactly as the first does."""
     state = runs["trainer"].state_dict()
-    clone = Trainer(PortOp, config=runs["config"], device="cpu")
+    clone = runs["clone"]
     clone.load_state_dict(state)
-    ops = [t.workers[0].operator for t in (runs["trainer"], clone)]
-    losses = [op.train_batch(runs["next"])["train_loss"] for op in ops]
+    trainers = (runs["trainer"], clone)
+    losses = [t.train(num_steps=1)["last_train_loss"] for t in trainers]
     assert losses[0] == losses[1]
-    a, b = (_leaves(op.state_dict()["params"]) for op in ops)
+    a, b = (_leaves(t.state_dict()["params"]) for t in trainers)
     assert all(np.array_equal(a[k], b[k]) for k in a)
     assert clone.state_dict()["global_step"] == STEPS + 1
 
@@ -165,21 +205,24 @@ def test_validate_uses_running_stats_and_changes_nothing(runs):
     validate ran in eval mode on the running statistics: what it checks
     now is that validate uses batch statistics and leaves the running
     ones unchanged."""
-    trainer = runs["trainer"]
-    op = trainer.workers[0].operator
+    trainer = runs["trainer"]  # its validation loader: the next batch twice
     images, labels = (torch.from_numpy(a) for a in runs["next"])
-    op.register_data(train_loader=op._train_loader,
-                     validation_loader=[runs["next"], runs["next"]])
     before = trainer.state_dict()
     out = trainer.validate()
-    assert op.model.training
+    assert _on_worker(trainer, lambda ops: ops[0].model.training)
     after = trainer.state_dict()
     for tree in ("params", "model_state"):
         a, b = _leaves(before[tree]), _leaves(after[tree])
         assert all(np.array_equal(a[k], b[k]) for k in a), tree
-    with torch.no_grad():
-        want = tres.loss_fn(op.model, images, labels).item()
-    tres.load_jax_params(op.model, before["params"], before["model_state"])
+
+    def loss_then_restore(ops):
+        with torch.no_grad():
+            loss = tres.loss_fn(ops[0].model, images, labels).item()
+        tres.load_jax_params(ops[0].model, before["params"],
+                             before["model_state"])
+        return loss
+
+    want = _on_worker(trainer, loss_then_restore)
     assert out["num_samples"] == 2 * BATCH
     assert out["val_loss"] == pytest.approx(want, rel=1e-6)
 
@@ -188,10 +231,8 @@ def test_validate_matches_jax_operator(runs):
     """Trainer.validate against the JAX operator's validate on the same
     batch after the same three steps (f32, rel 1e-4), and the running
     statistics unchanged by it."""
-    trainer = Trainer(PortOp, config=runs["config"], device="cpu")
+    trainer = runs["clone"]  # its validation loader: the next batch
     trainer.load_state_dict(runs["port"]["state"])  # after the three steps
-    op = trainer.workers[0].operator
-    op.register_data(validation_loader=[runs["next"]])
     before = _leaves(trainer.state_dict()["model_state"])
     got, want = trainer.validate(), runs["jax_val"]
     assert got["num_samples"] == want["num_samples"] == BATCH
@@ -201,7 +242,7 @@ def test_validate_matches_jax_operator(runs):
     assert all(np.array_equal(before[k], after[k]) for k in before)
 
 
-def test_validate_takes_eval_fn():
+def test_validate_takes_eval_fn(cluster):
     """register(eval_fn=...) replaces the default metrics; each is
     averaged over the loader."""
     class Op(TrainingOperator):
@@ -216,7 +257,11 @@ def test_validate_takes_eval_fn():
             self.register_data(validation_loader=config["batches"])
 
     batches = _data()[2][:2]
-    out = Trainer(Op, config={"batches": batches}, device="cpu").validate()
+    trainer = Trainer(Op, config={"batches": batches}, device="cpu")
+    try:
+        out = trainer.validate()
+    finally:
+        trainer.shutdown()
     assert out == {"top": float(np.mean([b[1].max() for b in batches])),
                    "num_samples": 2 * BATCH}
 
@@ -239,7 +284,7 @@ def test_trainer_unported_options_raise(kwargs):
         Trainer(PortOp, config={}, device="cpu", **kwargs)
 
 
-def test_trainer_rejects_more_gpus_than_present(monkeypatch):
+def test_trainer_rejects_more_gpus_than_present(cluster, monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     with pytest.raises(ValueError, match="GPU"):
         Trainer(PortOp, config={}, device="cpu",

@@ -25,6 +25,8 @@ input moves the stem_bn.bias gradient by 2e-2. The noisy biases keep
 ReLU inputs away from 0, so the comparison measures the arithmetic.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -235,3 +237,59 @@ def test_params_from_jax_rejects_mismatched_tree(results):
     params.pop("fc_b")
     with pytest.raises(ValueError, match="missing"):
         tres.params_from_jax(params, r["state"], r["tcfg"])
+
+
+# ---------------------------------------------------------------------------
+# the space-to-depth stem (ResNetConfig(stem_mode="s2d"))
+# ---------------------------------------------------------------------------
+
+S2D_TOL = 1e-5  # max |port - jax| / max |jax|: two float32 convolutions
+
+
+def _s2d_inputs(hw):
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, hw, hw, 3)).astype(np.float32)
+    w = (rng.standard_normal((7, 7, 3, 8)) * 0.1).astype(np.float32)
+    return x, w
+
+
+def _port_stem(x, w, mode):
+    """The port's stem on NHWC numpy x and HWIO numpy w, back to NHWC."""
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    wt = torch.from_numpy(w).permute(3, 2, 0, 1)
+    with torch.no_grad():
+        y = (tres._stem_s2d(xt, wt) if mode == "s2d"
+             else tres._conv(xt, wt, 2))
+    return y.permute(0, 2, 3, 1).numpy()
+
+
+@pytest.mark.parametrize("hw", [32, 30])
+def test_s2d_stem_matches_jax(hw):
+    """The port's s2d stem against the JAX package's `_stem_s2d` on the
+    same input and weights (float32)."""
+    x, w = _s2d_inputs(hw)
+    want = np.asarray(jres._stem_s2d(jnp.asarray(x), jnp.asarray(w),
+                                     jnp.float32))
+    got = _port_stem(x, w, "s2d")
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= S2D_TOL * np.abs(want).max()
+
+
+def test_s2d_stem_is_equivalent():
+    """As tests/test_models.py::test_resnet_s2d_stem_is_equivalent: the
+    s2d stem computes the standard 7x7/2 stem (atol 1e-4), and a model
+    with it gives the standard model's logits from the same parameters
+    (atol 3e-3), at a small bottleneck ResNet; odd sizes raise."""
+    x, w = _s2d_inputs(32)
+    np.testing.assert_allclose(_port_stem(x, w, "s2d"),
+                               _port_stem(x, w, "standard"), atol=1e-4)
+    cfg = tres.ResNetConfig((1, 1), True, 10, width=8, dtype=torch.float32)
+    std = tres.ResNet(cfg, seed=2).eval()
+    s2d = tres.params_from_jax(*tres.params_to_jax(std),
+                               dataclasses.replace(cfg, stem_mode="s2d"))
+    images = torch.from_numpy(x)
+    with torch.no_grad():
+        np.testing.assert_allclose(s2d.eval()(images).numpy(),
+                                   std(images).numpy(), atol=3e-3)
+        with pytest.raises(ValueError, match="even input"):
+            s2d(images[:, :31, :31])

@@ -1,5 +1,8 @@
 """Port check: data-parallel and ZeRO training through the port's
-`Trainer(num_workers=2)` on the CPU, held against the JAX package.
+`Trainer(num_workers=2)` on the CPU, held against the JAX package. The
+ranks run in the trainer's TrainWorker actor, in a module-scoped
+`ray_tpu_torch.init` cluster; what a check reads of a rank (its weights,
+gradients, steps, counters) comes from the worker's process.
 
 A small GPT (2 layers, 4 heads, d 64, vocab 256, T 64, f32) on
 `device="cpu"`, where the ring collectives take their plain versions.
@@ -21,20 +24,29 @@ Tolerances:
 """
 
 import dataclasses
+import sys
+from concurrent.futures import ThreadPoolExecutor
 
+import cloudpickle
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import ray_tpu_torch
 from ray_tpu.models import transformer as jtr
 from ray_tpu.train import sharding as jshard
-from ray_tpu_torch.collective import metrics as cm
 from ray_tpu_torch.collective.backends import device_backend as db
+from ray_tpu_torch.exceptions import TaskError
 from ray_tpu_torch.models import transformer as ttr
 from ray_tpu_torch.train import Trainer, TrainingOperator
 from ray_tpu_torch.train import sharding as tshard
+from tests.test_torch_runtime import port_cluster
+
+# the worker builds this module's operator class (and runs its probes)
+# from their pickles: by value, so it never imports this module or jax
+cloudpickle.register_pickle_by_value(sys.modules[__name__])
 
 B, T, STEPS, W = 2, 64, 3, 2
 JCFG = dataclasses.replace(jtr.TINY, dtype=jnp.float32, max_seq=T)
@@ -93,12 +105,39 @@ def _grads_tree(model):
     return tree
 
 
-def _params(model):
-    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+def _params(named):
+    """A rank's parameters, flat, from its named parameters."""
+    return torch.cat([p.detach().reshape(-1) for p in named.values()])
+
+
+def _named_params(ops):
+    """Every rank's named parameters (run in the worker)."""
+    return [{n: p.detach() for n, p in op.model.named_parameters()}
+            for op in ops]
+
+
+def _on_worker(trainer, fn):
+    """fn(operators) run in the trainer's worker process."""
+    return ray_tpu_torch.get(trainer.workers[0].run.remote(fn))
+
+
+def _raised_in_worker(cls, match):
+    """An exception of type cls raised in the worker comes back as the
+    runtime's TaskError naming it."""
+    return pytest.raises(TaskError, match=rf"Task raised {cls.__name__}: "
+                                          rf".*{match}")
 
 
 @pytest.fixture(scope="module")
-def data():
+def cluster():
+    # a CPU a trainer's worker: room for every trainer this file holds at
+    # once (`built`'s eight and a restore test's two)
+    with port_cluster(num_cpus=10):
+        yield
+
+
+@pytest.fixture(scope="module")
+def data(cluster):
     params = ttr.params_to_jax(ttr.GPT(TCFG, seed=3))
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, TCFG.vocab_size, (W, STEPS, B, T),
@@ -106,21 +145,108 @@ def data():
     return params, tokens
 
 
-def _train(data, steps=STEPS, **kwargs):
+def _trainer(data, epochs=1, **kwargs):
+    """A W-rank trainer whose rank r trains on tokens[r], `epochs` times
+    over."""
     params, tokens = data
-    trainer = Trainer(DPOp, num_workers=W, device="cpu", config={
-        "params": params, "batches": [list(t) for t in tokens],
+    return Trainer(DPOp, num_workers=W, device="cpu", config={
+        "params": params, "batches": [list(t) * epochs for t in tokens],
         "opt": kwargs.pop("opt", "sgd")}, **kwargs)
+
+
+def _build(*makers):
+    """Trainers made at once (each worker spends seconds importing
+    torch); all are shut down if one fails."""
+    with ThreadPoolExecutor(len(makers)) as pool:
+        futures = [pool.submit(make) for make in makers]
+    built = [f.result() for f in futures if f.exception() is None]
+    for f in futures:
+        if f.exception() is not None:
+            for trainer in built:
+                trainer.shutdown()
+            raise f.exception()
+    return built
+
+
+def _steps(trainer, steps=STEPS):
+    """The losses of `steps` steps and every rank's named parameters."""
     losses = [trainer.train(num_steps=1)["last_train_loss"]
               for _ in range(steps)]
-    models = [w.operator.model for w in trainer.workers]
-    trainer.shutdown()
-    return losses, models
+    return losses, _on_worker(trainer, _named_params)
+
+
+def _single(data, sharded):
+    """A one-rank AdamW trainer on rank 0's tokens."""
+    params, tokens = data
+    return Trainer(DPOp, device="cpu", sharded=sharded, config={
+        "params": params, "batches": [list(tokens[0])], "opt": "adamw"})
+
+
+def _mismatched(data):
+    """Rank 1 has one batch where rank 0 has three."""
+    params, tokens = data
+    return Trainer(DPOp, num_workers=W, device="cpu",
+                   collective_timeout=0.01, config={
+                       "params": params,
+                       "batches": [list(tokens[0]), list(tokens[1][:1])]})
 
 
 @pytest.fixture(scope="module")
-def replicated(data):
-    return _train(data)
+def built(data):
+    """Every trainer of this file but the restore tests', made at once
+    (each worker spends seconds importing torch). A test that is done
+    with one shuts it down; the rest go at the module's end."""
+    makers = {
+        "sgd": lambda: _trainer(data),
+        "sgd_sharded": lambda: _trainer(data, sharded=True),
+        # loaders of two epochs: the checkpoint tests step past three
+        "adamw": lambda: _trainer(data, epochs=2, opt="adamw"),
+        "adamw_sharded": lambda: _trainer(data, epochs=2, opt="adamw",
+                                          sharded=True),
+        "int8": lambda: _trainer(data, quantize="int8"),
+        "mismatched": lambda: _mismatched(data),
+        "single": lambda: _single(data, False),
+        "single_sharded": lambda: _single(data, True)}
+    trainers = dict(zip(makers, _build(*makers.values())))
+    try:
+        yield trainers
+    finally:
+        for trainer in trainers.values():
+            trainer.shutdown()
+
+
+@pytest.fixture(scope="module")
+def sgd_runs(built):
+    """Three SGD steps, replicated and sharded: every rank's gradients
+    after the replicated first step, and each run's losses and named
+    parameters after the third."""
+    replicated, sharded = built["sgd"], built["sgd_sharded"]
+    try:
+        losses = [replicated.train(num_steps=1)["last_train_loss"]]
+        grads = _on_worker(replicated, lambda ops: [_grads_tree(op.model)
+                                                     for op in ops])
+        losses += [replicated.train(num_steps=1)["last_train_loss"]
+                   for _ in range(STEPS - 1)]
+        return {"replicated": (losses, _on_worker(replicated,
+                                                   _named_params)),
+                "sharded": _steps(sharded), "grads": grads}
+    finally:
+        replicated.shutdown()
+        sharded.shutdown()
+
+
+@pytest.fixture(scope="module")
+def adamw_runs(built):
+    """Three AdamW steps, replicated and sharded, with the trainers kept
+    for the checkpoint tests."""
+    trainers = {False: built["adamw"], True: built["adamw_sharded"]}
+    return {"replicated": _steps(trainers[False]),
+            "sharded": _steps(trainers[True]), "trainers": trainers}
+
+
+@pytest.fixture(scope="module")
+def replicated(sgd_runs):
+    return sgd_runs["replicated"]
 
 
 @pytest.fixture(scope="module")
@@ -152,16 +278,16 @@ def jax_grads(data):
 
 
 @pytest.fixture(scope="module")
-def one_dp_step(data):
-    _, models = _train(data, steps=1)
-    return [_grads_tree(m) for m in models]
+def one_dp_step(sgd_runs):
+    return sgd_runs["grads"]
 
 
 def test_ranks_stay_bit_identical(replicated):
     losses, (m0, m1) = replicated
     assert len(losses) == STEPS and all(np.isfinite(losses))
-    for (n, p0), p1 in zip(m0.named_parameters(), m1.parameters()):
-        assert torch.equal(p0, p1), n
+    assert m0.keys() == m1.keys()
+    for n in m0:
+        assert torch.equal(m0[n], m1[n]), n
 
 
 @pytest.mark.parametrize("leaf", LEAVES)
@@ -174,38 +300,43 @@ def test_dp_step_matches_jax_operator_at_combined_batch(one_dp_step,
 
 
 @pytest.mark.parametrize("opt", ["sgd", "adamw"])
-def test_sharded_bit_identical_to_replicated(data, replicated, opt):
-    want_losses, want = (replicated if opt == "sgd"
-                         else _train(data, opt=opt))
-    got_losses, got = _train(data, sharded=True, opt=opt)
+def test_sharded_bit_identical_to_replicated(request, opt):
+    runs = request.getfixturevalue(f"{opt}_runs")
+    want_losses, want = runs["replicated"]
+    got_losses, got = runs["sharded"]
     assert got_losses == want_losses
     for r in range(W):
         assert torch.equal(_params(got[r]), _params(want[r])), r
 
 
-def test_sharded_single_worker_matches_replicated(data):
+def test_sharded_single_worker_matches_replicated(built):
     """sharded=True stays on at world size 1 (no collective: the padded
     bucket is the rank's span), with the same update as the fused
     single-worker step."""
-    params, tokens = data
     out = []
-    for sharded in (False, True):
-        trainer = Trainer(DPOp, device="cpu", sharded=sharded, config={
-            "params": params, "batches": [list(tokens[0])], "opt": "adamw"})
-        trainer.train(num_steps=2)
-        out.append(_params(trainer.workers[0].operator.model))
-        trainer.shutdown()
+    for trainer in (built["single"], built["single_sharded"]):
+        try:
+            trainer.train(num_steps=2)
+            out.append(_params(_on_worker(trainer, _named_params)[0]))
+        finally:
+            trainer.shutdown()
     assert torch.equal(out[0], out[1])
 
 
-def test_int8_counts_saved_bytes(data):
+def test_int8_counts_saved_bytes(built):
+    """The counter is the worker's: read through read_counter."""
     numel = ttr.num_params(ttr.GPT(TCFG))
-    before = cm.QUANT_SAVED
-    losses, (m0, m1) = _train(data, steps=2, quantize="int8")
+    trainer = built["int8"]
+    name = "collective.quantized_bytes_saved_total"
+    before = ray_tpu_torch.get(trainer.workers[0].read_counter.remote(name))
+    losses = [trainer.train(num_steps=1)["last_train_loss"]
+              for _ in range(2)]
+    after = ray_tpu_torch.get(trainer.workers[0].read_counter.remote(name))
+    m0, m1 = _on_worker(trainer, _named_params)
     per_call = db._qring_saved_bytes(db._qring_pad(numel, W), W,
                                      torch.float32, "sum")
     assert per_call > 0
-    assert cm.QUANT_SAVED - before == 2 * W * per_call
+    assert after - before == 2 * W * per_call
     assert all(np.isfinite(losses))
     assert torch.equal(_params(m0), _params(m1))
 
@@ -236,17 +367,9 @@ def test_opt_nbytes_matches_reference():
     assert tshard.opt_nbytes(opt.state_dict()) == want
 
 
-def test_trainer_rejects_mismatched_step_counts(data):
-    params, tokens = data
-    batches = [list(tokens[0]), list(tokens[1][:1])]
-    trainer = Trainer(DPOp, num_workers=W, device="cpu",
-                      collective_timeout=0.01,
-                      config={"params": params, "batches": batches})
-    try:
-        with pytest.raises(RuntimeError, match="same number of steps"):
-            trainer.train(num_steps=2)
-    finally:
-        trainer.shutdown()
+def test_trainer_rejects_mismatched_step_counts(built):
+    with _raised_in_worker(RuntimeError, "same number of steps"):
+        built["mismatched"].train(num_steps=2)
 
 
 # ---------------------------------------------------------------------------
@@ -269,18 +392,21 @@ def test_sharded_restore_then_step_equals_fresh_first_step(data, world,
     batch 2, bit for bit. Plain SGD at world 2 holds no optimizer state,
     so no rank keeps any from the two steps (the state's opt_shard is
     rank 0's and installs on rank 0 alone)."""
-    trainer = _sharded_trainer(data, world, opt)
-    initial = trainer.state_dict()
-    trainer.train(num_steps=2)
-    trainer.load_state_dict(initial)
-    trainer.train(num_steps=1)
-    fresh = _sharded_trainer(data, world, opt, first=2)
-    fresh.train(num_steps=1)
+    trainer, fresh = _build(
+        lambda: _sharded_trainer(data, world, opt),
+        lambda: _sharded_trainer(data, world, opt, first=2))
     try:
+        initial = trainer.state_dict()
+        trainer.train(num_steps=2)
+        trainer.load_state_dict(initial)
+        trainer.train(num_steps=1)
+        fresh.train(num_steps=1)
+        got, want = (_on_worker(t, _named_params) for t in (trainer, fresh))
+        steps = _on_worker(trainer, lambda ops: [op.global_step
+                                                 for op in ops])
         for r in range(world):
-            assert torch.equal(_params(trainer.workers[r].operator.model),
-                               _params(fresh.workers[r].operator.model)), r
-            assert trainer.workers[r].operator.global_step == 1
+            assert torch.equal(_params(got[r]), _params(want[r])), r
+            assert steps[r] == 1
     finally:
         trainer.shutdown()
         fresh.shutdown()
@@ -317,58 +443,55 @@ def jax_sharded(data):
     return shards, messages
 
 
-def test_sharded_state_dict_carries_the_reference_format(data, jax_sharded):
+def test_sharded_state_dict_carries_the_reference_format(adamw_runs,
+                                                        jax_sharded):
+    """Each rank's state_dict after its AdamW steps."""
     shards, _ = jax_sharded
-    trainer = _sharded_trainer(data, W, "adamw")
-    try:
-        trainer.train(num_steps=1)
-        for r in range(W):
-            state = trainer.workers[r].state_dict()
-            assert state["sharded_update"] is True and "opt_state" not in state
-            got, want = state["opt_shard"], shards[r]
-            assert got.keys() == want.keys()
-            for k in ("rank", "world_size", "span", "numel", "pad_numel"):
-                assert got[k] == want[k], k
-            span = want["span"][1] - want["span"][0]
-            # AdamW: exp_avg, exp_avg_sq (the rank's span each), step
-            assert [tuple(t.shape) for t in got["leaves"]] == [
-                (span,), (span,), ()]
-            assert all(t.device.type == "cpu" for t in got["leaves"])
-    finally:
-        trainer.shutdown()
+    trainer = adamw_runs["trainers"][True]
+    states = _on_worker(trainer, lambda ops: [op.state_dict() for op in ops])
+    for r in range(W):
+        state = states[r]
+        assert state["sharded_update"] is True and "opt_state" not in state
+        got, want = state["opt_shard"], shards[r]
+        assert got.keys() == want.keys()
+        for k in ("rank", "world_size", "span", "numel", "pad_numel"):
+            assert got[k] == want[k], k
+        span = want["span"][1] - want["span"][0]
+        # AdamW: exp_avg, exp_avg_sq (the rank's span each), step
+        assert [tuple(t.shape) for t in got["leaves"]] == [
+            (span,), (span,), ()]
+        assert all(t.device.type == "cpu" for t in got["leaves"])
 
 
 @pytest.mark.parametrize("sharded", [True, False])
-def test_cross_loads_raise_the_reference_errors(data, jax_sharded, sharded):
-    """A replicated checkpoint into a sharded trainer, and the reverse."""
-    params, tokens = data
+def test_cross_loads_raise_the_reference_errors(adamw_runs, jax_sharded,
+                                                sharded):
+    """A replicated checkpoint into a sharded trainer, and the reverse
+    (the refusal comes before anything of the trainer changes)."""
     _, messages = jax_sharded
-    src = Trainer(DPOp, num_workers=W, device="cpu", sharded=not sharded,
-                  config={"params": params, "batches": [[], []]})
-    dst = Trainer(DPOp, num_workers=W, device="cpu", sharded=sharded,
-                  config={"params": params, "batches": [[], []]})
-    try:
-        with pytest.raises(ValueError) as err:
-            dst.load_state_dict(src.state_dict())
-        assert str(err.value) == messages[sharded]
-    finally:
-        src.shutdown()
-        dst.shutdown()
+    trainers = adamw_runs["trainers"]
+    src, dst = trainers[not sharded], trainers[sharded]
+    with _raised_in_worker(ValueError, "") as err:
+        dst.load_state_dict(src.state_dict())
+    assert err.value.cause_repr == repr(ValueError(messages[sharded]))
 
 
-def test_opt_shard_round_trip_and_geometry_mismatch(data):
-    trainer = _sharded_trainer(data, W, "adamw")
-    try:
-        trainer.train(num_steps=1)
-        op0, op1 = (w.operator for w in trainer.workers)
-        shard = op0.opt_shard_state()
-        with pytest.raises(ValueError, match="does not match rank 1"):
-            op1.load_opt_shard(shard)
-        with pytest.raises(ValueError, match="does not match rank 0"):
-            op0.load_opt_shard({**shard, "world_size": 3})
-        trainer.train(num_steps=1)  # moves rank 0's state on
-        op0.load_opt_shard(shard)
-        for a, b in zip(op0.opt_shard_state()["leaves"], shard["leaves"]):
-            assert torch.equal(a, b)
-    finally:
-        trainer.shutdown()
+def test_opt_shard_round_trip_and_geometry_mismatch(adamw_runs):
+    """On the sharded AdamW trainer, past its three steps (its loaders
+    hold two epochs)."""
+    trainer = adamw_runs["trainers"][True]
+    trainer.train(num_steps=1)
+    shard = _on_worker(trainer, lambda ops: ops[0].opt_shard_state())
+    with _raised_in_worker(ValueError, "does not match rank 1"):
+        _on_worker(trainer, lambda ops: ops[1].load_opt_shard(shard))
+    with _raised_in_worker(ValueError, "does not match rank 0"):
+        _on_worker(trainer, lambda ops: ops[0].load_opt_shard(
+            {**shard, "world_size": 3}))
+    trainer.train(num_steps=1)  # moves rank 0's state on
+
+    def reload(ops):
+        ops[0].load_opt_shard(shard)
+        return ops[0].opt_shard_state()["leaves"]
+
+    for a, b in zip(_on_worker(trainer, reload), shard["leaves"]):
+        assert torch.equal(a, b)

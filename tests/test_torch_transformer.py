@@ -22,13 +22,16 @@ Tolerances:
   head carry those differences into the logits.
 - remat on against off: identical gradients (the recompute repeats the
   same operations).
-- three SGD steps (lr 0.1) through the port's `Trainer(device="cpu")`
+- three SGD steps (lr 0.1) through the port's `Trainer(device="cpu")` (its
+  rank in a TrainWorker actor of a module-scoped `ray_tpu_torch.init`)
   against a JAX `TrainingOperator` with optax.sgd(0.1), float32: each
   loss 1e-4 relative and each parameter Σ|port − jax| / Σ|jax| ≤ 1e-4.
 """
 
 import dataclasses
+import sys
 
+import cloudpickle
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -38,6 +41,11 @@ import torch
 from ray_tpu.models import transformer as jtr
 from ray_tpu_torch.models import transformer as ttr
 from ray_tpu_torch.train import Trainer, TrainingOperator
+from tests.test_torch_runtime import port_cluster
+
+# the worker builds this module's operator class from its pickle: by
+# value, so it never imports this module (and with it jax)
+cloudpickle.register_pickle_by_value(sys.modules[__name__])
 
 B, T, STEPS = 2, 32, 3
 JCFG = dataclasses.replace(jtr.TINY, dtype=jnp.float32)
@@ -166,7 +174,13 @@ def jax_results(data):
 
 
 @pytest.fixture(scope="module")
-def port_results(data):
+def cluster():
+    with port_cluster(num_cpus=4):
+        yield
+
+
+@pytest.fixture(scope="module")
+def port_results(data, cluster):
     params, tokens = data
     tok = torch.from_numpy(tokens[0])
     out = {}
@@ -185,9 +199,12 @@ def port_results(data):
     trainer = Trainer(PortOp, config={"params": params,
                                       "batches": list(tokens)},
                       device="cpu")
-    out["train_losses"] = [trainer.train(num_steps=1)["last_train_loss"]
-                           for _ in range(STEPS)]
-    out["trained"] = trainer.state_dict()["params"]
+    try:
+        out["train_losses"] = [trainer.train(num_steps=1)["last_train_loss"]
+                               for _ in range(STEPS)]
+        out["trained"] = trainer.state_dict()["params"]
+    finally:
+        trainer.shutdown()
     return out
 
 
