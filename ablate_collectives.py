@@ -146,14 +146,14 @@ def _call(ops, fn, xs, lib):
 
 
 def _use_in_worker(trainer, path):
-    """_use of the variant library at `path` in the trainer's worker
+    """_use of the variant library at `path` in every rank's worker
     process (the ranks run there, not in this one)."""
     import ray_tpu_torch
 
     def setup(ops):
         _use(ctypes.CDLL(path))
 
-    ray_tpu_torch.get(trainer.workers[0].run.remote(setup))
+    ray_tpu_torch.get([w.run.remote(setup) for w in trainer.workers])
 
 
 def _dp(libs):
@@ -246,7 +246,8 @@ def main():
                 for name, f in RUNS[kind]:
                     label = f"{name} x{f}"
                     ops = [col.init_collective_group(
-                        w, r, group_name=f"ablate_{kind}_{w}_{label}")
+                        w, r, backend="xla",
+                        group_name=f"ablate_{kind}_{w}_{label}")
                         for r in range(w)][0].group.transport._ops
                     ops._max_blocks = cap * f
                     fn, plain, _ = chip_smoke._ring_fns(ops, kind, "add")
@@ -276,8 +277,9 @@ def main():
                     for label, run in copies.items():
                         ms[label].append(chip_smoke.time_ms(run,
                                                             flush=flush))
-                bound_ms, _, _ = chip_smoke._ring_bound(runs["kernel x1"][0],
-                                                        kind, length, w, 4)
+                bound_ms, _, _ = chip_smoke._ring_bound(
+                    len({d.index for d in runs["kernel x1"][0].devices}),
+                    kind, length, w, 4)
                 row = {"kind": kind, "w": w, "length": length,
                        "blocks_cap": cap, "bound_ms": bound_ms, "ms": ms}
                 if kind == "quantized":

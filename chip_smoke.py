@@ -8,14 +8,16 @@ Run from the root of a checkout:
 It builds every kernel under ray_tpu_torch/ops/csrc/ with nvcc, holds each
 against its plain PyTorch version at the shapes of the main paths,
 starts the port's runtime (`ray_tpu_torch.init()`) on the card, and
-drives the three main paths through `ray_tpu_torch.train.Trainer`, whose
-ranks run in a TrainWorker actor, a process of its own on the card:
-ResNet-50 training at batch 256, 224², bf16, with the batchnorm backward
-sums in the hand-written kernel; GPT-2 124M training at batch 12 x 1024
-tokens, bf16, with every layernorm and flash-attention forward in the
-hand-written kernels; and the same GPT-2 data-parallel over two ranks
-that share the card, with the gradient collectives in the hand-written
-ring kernels. Each phase prints one JSON line:
+drives the three main paths through `ray_tpu_torch.train.Trainer`, each
+of whose ranks runs in a TrainWorker actor, a process of its own on the
+card: ResNet-50 training at batch 256, 224², bf16, with the batchnorm
+backward sums in the hand-written kernel; GPT-2 124M training at batch 12
+x 1024 tokens, bf16, with every layernorm and flash-attention forward in
+the hand-written kernels; and the same GPT-2 data-parallel over two ranks
+in two processes that share the card (min(4, cards) ranks, a card each,
+on a machine with more), with the gradient collectives in the
+hand-written ring kernels across the processes. Each phase prints one
+JSON line:
 
 1. device: nvidia-smi's name and power limit, torch, CUDA and nvcc.
 2. build: nvcc of every source, one process each, all started together.
@@ -40,10 +42,10 @@ ring kernels. Each phase prints one JSON line:
    the card's name); a 256 MB bf16 tensor from the driver to it through
    put, summed on its card, and back bit-equal, twice (put, round-trip
    and get ms); /dev/shm and the object store.
-   The train phases run in the worker actor: every kernel counter is set
-   to 0 in the worker and in the driver just before the measured
-   train(), the worker's are read through read_counter just after, and
-   the driver's must still be 0. Each prints framework_fraction (the
+   The train phases run in the worker actors: every kernel counter is set
+   to 0 in each worker and in the driver just before the measured
+   train(), each rank's are read through read_counter from its own
+   worker just after, and the driver's must still be 0. Each prints framework_fraction (the
    worker's throughput against the raw loop, run in the driver after the
    trainer's shutdown) and the driver's wall time per train(), which
    holds the actor boundary and the state_dict that comes back after
@@ -65,17 +67,35 @@ ring kernels. Each phase prints one JSON line:
    call (every rank's kernel) beside the bound, B8's also beside a bound
    that counts its int8 wire, and one PyTorch call over the ranks'
    tensors.
-9. train_gpt2_dp: GPT-2 124M through Trainer(num_workers=2,
-   collective_transport="pallas") at 12 x 1024 tokens a rank, exact,
-   quantize="int8" and sharded=True: tokens/s over both ranks, ring
-   launches a rank and step, the ring kernels' share of device time,
-   peak memory, losses (the device times from the worker's
-   train(profile_dir=) chrome trace); the ranks bit-identical, sharded
-   bit-identical to exact, int8 within a band of exact with its saved
-   bytes counted, and a float32 DP step against a single-worker step at
-   the combined batch.
+9. collectives_procs (run after runtime): B5-B8 as the main path runs
+   them, a rank a process: rank actors joined to one per-process
+   HostGroup (transport "pallas"), w = 2 and 4 on one card ({"GPU": 1/w}
+   each) or, on a machine with more cards, w = 2 and min(4, cards) a card
+   each: every
+   built op and dtype at a ragged 10,007 and the four kernels at GPT-2's
+   bucket, each rank's output's sha256 against the plain version's, which
+   this process computes from the same seeded inputs; every rank's
+   launches counted in its own process and none here; a withheld rank
+   that each peer names in a TimeoutError; the ms of one call (every
+   rank's phases and copies) beside the bound and the copies' ms; the
+   NCCL tier's sum and ms where every rank holds a card of its own, else
+   its vote of 0 and a forced "device" group's RuntimeError.
+10. train_gpt2_dp: GPT-2 124M through Trainer(num_workers=2 (one card) or
+   min(4, cards), collective_transport="pallas") at 12 x 1024 tokens a
+   rank, a worker process a rank, exact, quantize="int8" and
+   sharded=True: tokens/s over the ranks beside the in-process layout's
+   earlier tokens/s, ring launches of each rank read from its own worker,
+   each tier's ops, the ring kernels' share of device time, peak memory,
+   losses (the device times from every rank's train(profile_dir=) chrome
+   trace); the ranks bit-identical (a digest of each rank's parameters),
+   in distinct processes, sharded bit-identical to exact, int8 within a
+   band of exact with its saved bytes counted, and a float32 DP step
+   against a single-worker step at the combined batch.
 Then the card's name and power limit, the kernels summary line and, last,
-{"ok": true, "device": {...}}. A failed phase raises: the script exits
+{"ok": true, "device": {...}}. `--only collectives_procs,train_gpt2_dp`
+runs the device and build phases and then only the named ones, the
+runtime started as in a whole run where one of them needs it, and prints
+no result line. A failed phase raises: the script exits
 non-zero and prints no result. Without CUDA it exits 2 at once.
 """
 
@@ -701,9 +721,10 @@ def _raw_img_s(dev):
 
 # The object store of the runtime: the GPT-2 state_dict that comes back
 # after each train() (124.4M parameters and AdamW's two moments, f32:
-# 1.5 GB) and the DP trainer's weights (0.5 GB, held while the worker
-# lives) must fit at once, with room to spare.
-STORE_BYTES = 8 << 30
+# 1.5 GB) and the DP trainer's weights (0.5 GB in each worker's
+# arguments, held while the worker lives: 2 GB for four ranks) must fit
+# at once, with room to spare (8 GiB ran out at four ranks).
+STORE_BYTES = 16 << 30
 # the runtime phase's payload: 256 MB of bf16
 RUNTIME_NUMEL = 128 << 20
 
@@ -839,28 +860,33 @@ def _worker_peak(ops):
 
 def measured_train(trainer, steps, **kw):
     """One train() of the main path with every count set to 0 just
-    before: the worker's counters (read back through read_counter), the
-    driver's (which must stay 0: no rank runs here), the worker's peak
-    memory; and the driver's wall time of the call, which holds the
-    actor boundary and the state_dict that comes back after the epoch."""
+    before: every rank's counters (read back through read_counter from
+    the rank's own worker; summed, and by rank), the driver's (which must
+    stay 0: no rank runs here), the ranks' peak memory; and the driver's
+    wall time of the call, which holds the actor boundary and the
+    state_dict that comes back after the epoch."""
     import ray_tpu_torch
     from ray_tpu_torch.train.trainer import KERNEL_COUNTERS
 
-    worker = trainer.workers[0]
-    ray_tpu_torch.get(worker.run.remote(_worker_reset))
+    workers = trainer.workers
+    ray_tpu_torch.get([w.run.remote(_worker_reset) for w in workers])
     zero_counts()
     t0 = time.perf_counter()
     result = trainer.train(num_steps=steps, **kw)
     wall = time.perf_counter() - t0
-    counts = dict(zip(KERNEL_COUNTERS, ray_tpu_torch.get(
-        [worker.read_counter.remote(n) for n in KERNEL_COUNTERS])))
+    by_rank = [dict(zip(KERNEL_COUNTERS, ray_tpu_torch.get(
+        [w.read_counter.remote(n) for n in KERNEL_COUNTERS])))
+        for w in workers]
+    counts = {n: sum(c[n] for c in by_rank) for n in KERNEL_COUNTERS}
     driver = local_counts()
     if any(driver.values()):
         raise RuntimeError(f"the driver launched kernels of the main path: "
                            f"{driver}")
-    peak = ray_tpu_torch.get(worker.run.remote(_worker_peak))
+    peak = max(ray_tpu_torch.get([w.run.remote(_worker_peak)
+                                  for w in workers]))
     return result, counts, {"driver_wall_s_per_train": wall,
                             "driver_counts": driver,
+                            "rank_counts": by_rank,
                             "max_memory_allocated": peak}
 
 
@@ -1227,7 +1253,7 @@ def _ring_bytes(kind, length, w, elt):
     return w * (length + out) * elt
 
 
-def _ring_bound(ops, kind, length, w, elt):
+def _ring_bound(cards, kind, length, w, elt):
     """(bound ms, "bytes", basis) of one call. All ranks on one card: every
     rank's bytes through its one memory at PEAK_BYTES_S. Ranks on c cards:
     the larger of a card's share of those bytes at PEAK_BYTES_S and the
@@ -1236,7 +1262,6 @@ def _ring_bound(ops, kind, length, w, elt):
     its reduced chunk to w - 1 peers and the w - 1 chunks of its input
     that they read; the reduce-scatter half that; the int8 ring a quarter
     of those bytes and its scales)."""
-    cards = len({d.index for d in ops.devices})
     t_mem = _ring_bytes(kind, length, w, elt) / cards / PEAK_BYTES_S
     if cards == 1:
         return (t_mem * 1e3, "bytes",
@@ -1304,8 +1329,9 @@ def _check_ring_case(ops, kind, combine, dtype, length, w, dev, gen, flush,
         raise RuntimeError(f"ring {kind} {combine} {dtype} w={w} "
                            f"[{length}]: {row}")
     if timed:
-        bound_ms, bound_by, basis = _ring_bound(ops, kind, length, w,
-                                                xs[0].element_size())
+        bound_ms, bound_by, basis = _ring_bound(
+            len({d.index for d in ops.devices}), kind, length, w,
+            xs[0].element_size())
         row.update(
             ms=time_ms(lambda: _ring_call(ops, fn, ranked), flush=flush),
             plain_ms=time_ms(lambda: plain(xs), flush=flush),
@@ -1374,7 +1400,8 @@ def _withhold(dev, kind, w, quantize=None):
     from ray_tpu_torch import collective as col
 
     name = f"withheld_{kind}_{w}_{quantize}"
-    handles = [col.init_collective_group(w, r, group_name=name,
+    handles = [col.init_collective_group(w, r, backend="xla",
+                                         group_name=name,
                                          timeout=RING_TIMEOUT_S,
                                          quantize=quantize)
                for r in range(w)]
@@ -1418,7 +1445,8 @@ def _timeout_check(dev):
                                                 quantize="int8")
                   for w in RING_WORLDS})
     x = torch.ones(4096, device=dev)
-    handles = [col.init_collective_group(2, r, group_name="after",
+    handles = [col.init_collective_group(2, r, backend="xla",
+                                         group_name="after",
                                          timeout=RING_TIMEOUT_S)
                for r in range(2)]
     ops = handles[0].group.transport._ops
@@ -1446,7 +1474,8 @@ def phase_collectives(dev):
     rows, stress = [], {}
     for w in RING_WORLDS:
         name = f"ring{w}"
-        handles = [col.init_collective_group(w, r, group_name=name,
+        handles = [col.init_collective_group(w, r, backend="xla",
+                                             group_name=name,
                                              timeout=RING_TIMEOUT_S * 5)
                    for r in range(w)]
         ops = handles[0].group.transport._ops
@@ -1485,9 +1514,369 @@ def phase_collectives(dev):
     return summary
 
 
-# GPT-2 124M data-parallel over DP_WORKERS ranks sharing the card, each at
-# the single-GPU main path's 12 x 1024 tokens
-DP_WORKERS, DP_STEPS, DP_PROFILE_STEPS = 2, 10, 2
+# ---------------------------------------------------------------------------
+# collectives_procs: B5-B8 launched by ranks in processes of their own
+# ---------------------------------------------------------------------------
+
+PROC_ITERS = 10  # back-to-back calls a timed case, every rank at once
+# what the numbers of B5-B8's rows in the kernels line measure
+PROCS_BASIS = {"ms": "one call through the per-process group, a rank a "
+               "process, hub vote included (collectives_procs, first run)",
+               "bound_ms": "the same call's bytes or operations",
+               "plain_ms": "the plain version over every rank's tensor in "
+               "one process (collectives)",
+               "library_ms": "one PyTorch call over every rank's tensor in "
+               "one process (collectives)"}
+NCCL_TOL = 1e-6  # NCCL's sum against the plain ring's, relative L2
+
+
+def _proc_cases(w):
+    """(kind, combine, dtype, padded payload per rank, n) of the
+    cross-process phase: every built op and dtype at the ragged 10,007,
+    padded as the collective layer pads it; the four kernels at GPT-2's
+    bucket (f32, add), timed."""
+    return [c for c in _ring_cases(w)
+            if c[4] == 10007 or (c[4] == GPT2_NUMEL and c[1] == "add"
+                                 and c[2] == torch.float32)]
+
+
+def _digest(t):
+    """sha256 of a tensor's bytes: outputs are held bit for bit."""
+    import hashlib
+
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+def _rank_actor_cls():
+    from ray_tpu_torch.collective import CollectiveActorMixin
+
+    class CollectiveRank(CollectiveActorMixin):
+        """One rank of the cross-process phase, in a process of its own
+        on its leased card (cuda:0 of its view)."""
+
+        def info(self):
+            props = torch.cuda.get_device_properties(0)
+            return {"pid": os.getpid(), "uuid": str(props.uuid),
+                    "cuda_visible_devices":
+                        os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+        def case(self, group, kind, combine, dtype, length, w, seed):
+            """The rank's input of the case (rank r's of the w made from
+            the seed, as the driver makes them), through the group twice;
+            the output's digest; the ms of one call through the group as
+            the main path makes it (`ms`: the hub vote, the phases and the
+            copies into and out of the mapped buffers) and of one call of
+            its transport alone (`transport_ms`: no vote), PROC_ITERS
+            calls back to back after a barrier each."""
+            from ray_tpu_torch import collective as col
+
+            dev = torch.device("cuda", 0)
+            g = col.get_group(group)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            x = _ring_inputs(combine, dtype, length, w, dev, gen)[g.rank]
+            op = _RING_OPS[combine]
+
+            def call(t):
+                if kind == "allreduce":
+                    return t.allreduce(x, op)
+                if kind == "quantized":
+                    return t.allreduce(x, op, quantize="int8")
+                if kind == "reducescatter":
+                    return t.reducescatter(x)
+                return torch.stack(t.allgather(x))
+
+            out = call(g)
+            again = call(g)
+            g.check()
+            row = {"digest": _digest(out),
+                   "repeat_identical": bool(torch.equal(out, again))}
+            del out, again
+            for key, t in (("ms", g), ("transport_ms", g._pallas)):
+                col.barrier(group)
+                torch.cuda.synchronize()
+                t0, t1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                t0.record()
+                for _ in range(PROC_ITERS):
+                    call(t)
+                t1.record()
+                g.check()
+                row[key] = t0.elapsed_time(t1) / PROC_ITERS
+            col.barrier(group)
+            row["copy_ms"] = time_ms(lambda: x.clone(), iters=10)
+            return row
+
+        def nccl(self, group, length, w, seed):
+            """The DEVICE tier's f32 sum at `length` (NCCL: a card a
+            rank), its result's digest against nothing and its ms."""
+            from ray_tpu_torch import collective as col
+
+            dev = torch.device("cuda", 0)
+            g = col.get_group(group)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            x = _ring_inputs("add", torch.float32, length, w, dev, gen)[
+                g.rank]
+            out = g.allreduce(x)
+            col.barrier(group)
+            torch.cuda.synchronize()
+            t0, t1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            t0.record()
+            for _ in range(PROC_ITERS):
+                g._device.allreduce(x)
+            t1.record()
+            torch.cuda.synchronize()
+            from ray_tpu_torch.collective import metrics
+
+            return {"out": out.cpu(), "ms": t0.elapsed_time(t1) / PROC_ITERS,
+                    "device_ops": metrics.DEVICE_OPS}
+
+        def tiers(self, group):
+            """Which device tiers the group may vote for, and what a forced
+            DEVICE tier does with a CUDA payload."""
+            from ray_tpu_torch import collective as col
+
+            g = col.get_group(group)
+            return {"pallas_shaped": g._pallas_shaped,
+                    "device_shaped": g._device_shaped,
+                    "blocks": g._blocks}
+
+        def forced_device(self, group):
+            from ray_tpu_torch import collective as col
+
+            try:
+                col.allreduce(torch.ones(4, device="cuda"), group)
+            except RuntimeError as e:
+                return str(e)
+            return None
+
+        def withhold(self, group, kind, withheld):
+            """A call of the transport (no vote) that rank `withheld` does
+            not make, after one that every rank made: every other rank's
+            host gives up waiting for its event after the timeout and
+            raises naming the withheld rank."""
+            from ray_tpu_torch import collective as col
+
+            g = col.get_group(group)
+            x = torch.ones(12288, device="cuda")  # even over 2, 3, 4
+
+            def call():
+                if kind == "allreduce":
+                    return g._pallas.allreduce(x)
+                if kind == "quantized":
+                    return g._pallas.allreduce(x, quantize="int8")
+                if kind == "reducescatter":
+                    return g._pallas.reducescatter(x)
+                return g._pallas.allgather(x)
+
+            col.allreduce(x, group)  # builds the transport
+            call()
+            g.check()
+            col.barrier(group)
+            if g.rank == withheld:
+                return None
+            t0 = time.perf_counter()
+            try:
+                call()
+                g.check()
+            except TimeoutError as e:
+                return {"raised_after_s": time.perf_counter() - t0,
+                        "error": str(e)}
+            return {"error": None}
+
+        def counts(self):
+            return local_counts()
+
+    return CollectiveRank
+
+
+def _proc_world(cards):
+    """The cross-process runs, (ranks, cards they use): on a one-card
+    machine w = 2 and w = 4 on card 0 (B8's hops among more than two
+    processes); with two or more cards, w = 2 and w = min(4, cards), a
+    card a rank."""
+    if cards == 1:
+        return [(2, 1), (4, 1)]
+    return list(dict.fromkeys([(2, 2), (min(4, cards), min(4, cards))]))
+
+
+def _proc_group(actors, name, **kwargs):
+    from ray_tpu_torch import collective as col
+
+    col.create_collective_group(actors, len(actors), list(range(len(actors))),
+                                group_name=name, **kwargs)
+
+
+def phase_collectives_procs(dev):
+    """B5-B8 through the per-process HostGroup (transport "pallas"), its
+    ranks in actors of their own: every case bit for bit against the plain
+    version, which this process computes from the same seeded inputs;
+    each rank's launches counted in its own process; a withheld rank; the
+    ms of one call beside the bound; the NCCL tier where there are two or
+    more cards, else its vote of 0."""
+    import ray_tpu_torch
+    from ray_tpu_torch.collective.backends import pallas_backend as pb
+
+    cards = torch.cuda.device_count()
+    base = _rank_actor_cls()
+
+    class Rank(base):
+        def destroy(self, name):
+            from ray_tpu_torch import collective as col
+
+            col.destroy_collective_group(name)
+
+        def reset(self):
+            zero_counts()
+
+    runs, summary = [], {}
+    for w, used in _proc_world(cards):
+        share = used / w  # a card a rank, or w ranks on one card
+        actors = [ray_tpu_torch.remote(num_gpus=share)(Rank).remote()
+                  for _ in range(w)]
+        infos = ray_tpu_torch.get([a.info.remote() for a in actors],
+                                  timeout=300)
+        name = f"procs{w}"
+        _proc_group(actors, name, transport="pallas",
+                    timeout=RING_TIMEOUT_S * 5)
+        tiers = ray_tpu_torch.get(actors[0].tiers.remote(name))
+        ray_tpu_torch.get([a.reset.remote() for a in actors])
+        zero_counts()
+        rows = []
+        for i, (kind, combine, dtype, length, n) in enumerate(_proc_cases(w)):
+            seed = 1000 + i
+            got = ray_tpu_torch.get([a.case.remote(
+                name, kind, combine, dtype, length, w, seed)
+                for a in actors], timeout=600)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            xs = _ring_inputs(combine, dtype, length, w, dev, gen)
+            want = [_digest(t) for t in _plain_of(kind, combine)(xs)]
+            del xs
+            row = {"kind": kind, "combine": combine, "dtype": str(dtype),
+                   "w": w, "n": n, "length": length,
+                   "bit_identical": [g["digest"] for g in got] == want,
+                   "repeat_identical": all(g["repeat_identical"]
+                                           for g in got)}
+            if "ms" in got[0]:
+                bound_ms, bound_by, basis = _ring_bound(
+                    used, kind, length, w, 4)
+                row.update(ms=max(g["ms"] for g in got),
+                           rank_ms=[g["ms"] for g in got],
+                           transport_ms=max(g["transport_ms"] for g in got),
+                           copy_ms=max(g["copy_ms"] for g in got),
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           bound_basis=basis)
+            rows.append(row)
+            if not (row["bit_identical"] and row["repeat_identical"]):
+                emit("collectives_procs", failed=row)
+                raise RuntimeError(f"collectives_procs: {row}")
+            torch.cuda.empty_cache()
+        counts = ray_tpu_torch.get([a.counts.remote() for a in actors])
+        driver = local_counts()
+        launched = {k: [c[k] for c in counts] for k in RING_COUNTERS}
+        if any(driver[k] for k in RING_COUNTERS) or not all(
+                all(v > 0 for v in launched[k]) for k in RING_COUNTERS):
+            raise RuntimeError(f"collectives_procs launches: ranks "
+                               f"{launched}, driver {driver}")
+        withheld = {}
+        for kind in ("allreduce", "reducescatter", "allgather",
+                     "quantized"):
+            wname = f"withheld_{kind}_{w}"
+            _proc_group(actors, wname, transport="pallas",
+                        timeout=RING_TIMEOUT_S)
+            res = ray_tpu_torch.get([a.withhold.remote(wname, kind, w - 1)
+                                     for a in actors], timeout=300)
+            ray_tpu_torch.get([a.destroy.remote(wname) for a in actors])
+            errors = [r["error"] for r in res[:-1]]
+            named = all(e and f"rank {w - 1}" in e for e in errors)
+            withheld[kind] = {"errors": errors, "raised_after_s": [
+                r.get("raised_after_s") for r in res[:-1]]}
+            if not named:
+                raise RuntimeError(f"withheld {kind} w={w}: {res}")
+        nccl = None
+        if tiers["device_shaped"]:
+            dname = f"nccl{w}"
+            _proc_group(actors, dname, transport="device",
+                        timeout=RING_TIMEOUT_S * 30)
+            length = w * -(-_bucket_of(GPT2_NUMEL) // w)
+            res = ray_tpu_torch.get([a.nccl.remote(dname, length, w, 7)
+                                     for a in actors], timeout=600)
+            ray_tpu_torch.get([a.destroy.remote(dname) for a in actors])
+            gen = torch.Generator(device=dev).manual_seed(7)
+            xs = _ring_inputs("add", torch.float32, length, w, dev, gen)
+            want = pb.allreduce_plain(xs, "sum")[0]
+            err = max(_rel_l2(r["out"].to(dev), want) for r in res)
+            del xs, want
+            nccl = {"ms": max(r["ms"] for r in res), "rel_l2": err,
+                    "tol": NCCL_TOL,
+                    "device_ops": [r["device_ops"] for r in res]}
+            if err > NCCL_TOL:
+                raise RuntimeError(f"NCCL tier: {nccl}")
+        else:
+            fname = f"forced_device{w}"
+            _proc_group(actors, fname, transport="device",
+                        timeout=RING_TIMEOUT_S * 5)
+            msgs = ray_tpu_torch.get([a.forced_device.remote(fname)
+                                      for a in actors])
+            ray_tpu_torch.get([a.destroy.remote(fname) for a in actors])
+            nccl = {"voted": 0, "why": "ranks share a card: NCCL refuses "
+                    "two ranks on one device", "forced_device_errors": msgs}
+            if not all(m and "forced collective transport 'device'" in m
+                       for m in msgs):
+                raise RuntimeError(f"forced device on one card: {msgs}")
+        ray_tpu_torch.get([a.destroy.remote(name) for a in actors])
+        for a in actors:
+            ray_tpu_torch.kill(a)
+        run = {"w": w, "cards_used": used, "ranks": infos, "tiers": tiers,
+               "cases": len(rows), "all_bit_identical": True,
+               "timed": [r for r in rows if "ms" in r],
+               "launches_per_rank": launched, "driver_launches": {
+                   k: driver[k] for k in RING_COUNTERS},
+               "withheld": withheld, "nccl": nccl}
+        emit("collectives_procs", **run)
+        runs.append(run)
+    for name, kind in (("ring_allreduce", "allreduce"),
+                       ("ring_reducescatter", "reducescatter"),
+                       ("ring_allgather", "allgather"),
+                       ("quantized_allreduce", "quantized")):
+        row = next(r for r in runs[0]["timed"]
+                   if r["kind"] == kind and r["n"] == GPT2_NUMEL)
+        summary[name] = {k: row[k] for k in ("ms", "bound_ms", "copy_ms")}
+        summary[name]["basis"] = PROCS_BASIS
+    return summary
+
+
+def _plain_of(kind, combine):
+    from ray_tpu_torch.collective.backends import pallas_backend as pb
+
+    op = _RING_OPS[combine]
+    return {"allreduce": lambda xs: pb.allreduce_plain(xs, op),
+            "reducescatter": pb.reducescatter_plain,
+            "allgather": pb.allgather_plain,
+            "quantized": lambda xs: pb.allreduce_quantized_plain(xs, op)
+            }[kind]
+
+
+def _bucket_of(n):
+    from ray_tpu_torch.collective.backends import device_backend as db
+
+    return db._bucket(n)
+
+
+# GPT-2 124M data-parallel, a rank a process, each at the single-GPU main
+# path's 12 x 1024 tokens: two ranks sharing a one-card machine's card,
+# or min(4, cards) ranks with a card each
+DP_STEPS, DP_PROFILE_STEPS = 10, 2
+# the tokens/s of the layout with every rank in one process, measured on
+# an H100 80GB HBM3 at 700 W (PERF.md section 5: two ranks on one card;
+# four cards, a rank a card), printed beside this run's
+DP_IN_PROCESS_TOKENS_S = {1: (55629, 63639), 4: (57482, 57482)}
+
+
+def dp_workers():
+    cards = torch.cuda.device_count()
+    return 2 if cards == 1 else min(4, cards)
 # the int8 run's mean and last loss of the timed epoch against the exact
 # run's: within 2% (the quantized wire rounds each gradient element to
 # 1/254 of its 256-block's largest value, twice a hop)
@@ -1530,7 +1919,7 @@ def _dp_trainer(params, batch, dtype, optimizer, steps, tf32=True,
                 **kwargs):
     from ray_tpu_torch.train import Trainer
 
-    return Trainer(gpt2_dp_operator_cls(), num_workers=DP_WORKERS,
+    return Trainer(gpt2_dp_operator_cls(), num_workers=dp_workers(),
                    collective_transport="pallas",
                    resources_per_worker={"GPU": 1},
                    config={"params": params, "batch": batch, "dtype": dtype,
@@ -1548,10 +1937,15 @@ COLLECTIVE_KERNEL_NAMES = ("direct_reduce", "direct_allgather",
                            "quantized_allreduce")
 
 
-def _ranks_identical(ops):
-    models = [op.model for op in ops]
-    return all(torch.equal(a, b.to(a.device)) for a, b in zip(
-        models[0].parameters(), models[1].parameters()))
+def _param_digest(ops):
+    """sha256 of a rank's parameters, in order (run in its worker)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in ops[0].model.parameters():
+        h.update(p.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
 
 
 def _rank0_flat_params(ops):
@@ -1588,16 +1982,17 @@ def _dp_run(params, label, **kwargs):
 
 
 def _dp_measure(trainer, label):
-    """Warm-up, a timed epoch with launches counted in the worker, an
-    epoch profiled in the worker (train(profile_dir=)); returns its
-    fields and rank 0's weights, and shuts the trainer down."""
+    """Warm-up, a timed epoch with launches counted in each rank's
+    worker, an epoch profiled in every worker (train(profile_dir=): one
+    trace a rank, each of its own process's kernels); returns its fields
+    and rank 0's weights, and shuts the trainer down."""
     import glob
     import tempfile
 
     import ray_tpu_torch
 
     cfg = gpt2_config()
-    worker = trainer.workers[0]
+    ranks = trainer.num_workers
     warm = trainer.train(num_steps=WARMUP)
     result, counts, meta = measured_train(trainer, DP_STEPS)
     launches = {k: int(counts[k]) for k in (*RING_COUNTERS, "layernorm",
@@ -1607,30 +2002,43 @@ def _dp_measure(trainer, label):
     with tempfile.TemporaryDirectory(dir=".") as trace_dir:
         profiled = trainer.train(num_steps=DP_PROFILE_STEPS,
                                  profile_dir=trace_dir)
-        busy, ring = device_times_us(
-            glob.glob(os.path.join(trace_dir, "*.json"))[0])
-    ranks_identical = ray_tpu_torch.get(worker.run.remote(_ranks_identical))
-    weights = ray_tpu_torch.get(worker.run.remote(_rank0_flat_params))
+        traces = [device_times_us(p) for p in
+                  sorted(glob.glob(os.path.join(trace_dir, "*.json")))]
+    busy, ring = (sum(t[i] for t in traces) for i in (0, 1))
+    digests = ray_tpu_torch.get([w.run.remote(_param_digest)
+                                 for w in trainer.workers])
+    # on the card: a host tensor from get() would pin its store block
+    weights = ray_tpu_torch.get(trainer.workers[0].run.remote(
+        _rank0_flat_params)).to("cuda")
+    pids = list(trainer._pids)
     trainer.shutdown()
     del trainer
-    per_rank_step = DP_WORKERS * DP_STEPS
+    per_rank_step = ranks * DP_STEPS
+    cards = torch.cuda.device_count()
     fields = {
         "run": label, "tokens_s": result["samples_per_s"] * cfg.max_seq,
-        "ranks": DP_WORKERS, "tokens_per_rank_step": GPT_BATCH * cfg.max_seq,
-        "steps": DP_STEPS,
+        "tokens_s_in_process_before": DP_IN_PROCESS_TOKENS_S.get(cards),
+        "ranks": ranks, "cards": cards, "rank_pids": pids,
+        "tokens_per_rank_step": GPT_BATCH * cfg.max_seq, "steps": DP_STEPS,
         "launches_per_rank_step": {k: v / per_rank_step
                                    for k, v in launches.items()},
+        "ring_launches_by_rank": [{k: int(c[k]) for k in RING_COUNTERS}
+                                  for c in meta["rank_counts"]],
+        "tier_ops_by_rank": [{k: int(v) for k, v in c.items()
+                              if k.endswith("_ops_total")}
+                             for c in meta.pop("rank_counts")],
         "ring_share_of_device_time": (ring / busy if busy else None),
         "device_busy_ms_per_step": busy / 1e3 / DP_PROFILE_STEPS,
-        "wall_ms_per_step_profiled": (DP_WORKERS * GPT_BATCH
+        "wall_ms_per_step_profiled": (ranks * GPT_BATCH
                                       / profiled["samples_per_s"] * 1e3),
-        "worker_s_per_epoch": (DP_WORKERS * GPT_BATCH * DP_STEPS
+        "worker_s_per_epoch": (ranks * GPT_BATCH * DP_STEPS
                                / result["samples_per_s"]),
         "warmup_last_loss": warm["last_train_loss"],
         "train_loss": result["train_loss"],
         "last_train_loss": result["last_train_loss"],
         "quant_saved_bytes_per_rank_step": saved / per_rank_step,
-        "ranks_bit_identical": ranks_identical, **meta}
+        "ranks_bit_identical": len(set(digests)) == 1,
+        "distinct_rank_processes": len(set(pids)) == ranks, **meta}
     return fields, launches, weights
 
 
@@ -1654,7 +2062,7 @@ def _dp_f32_check(dev, params):
     cfg = gpt2_config(torch.float32)
     model = transformer.params_from_jax(params, cfg).to(dev)
     tokens = torch.cat([_gpt_tokens(dev, DP_F32_BATCH, cfg, seed=10 + r)
-                        for r in range(DP_WORKERS)])
+                        for r in range(dp_workers())])
     transformer.loss_fn(model, tokens).backward()
     one = {n: p.grad for n, p in model.named_parameters()}
     errs = {"grad": max(_rel_l2(dp[n], one[n]) for n in one),
@@ -1670,8 +2078,9 @@ def _dp_f32_check(dev, params):
 
 
 def phase_train_gpt2_dp(dev):
-    """GPT-2 124M through Trainer(num_workers=2, collective_transport=
-    "pallas"): exact, quantize="int8" and sharded=True."""
+    """GPT-2 124M through Trainer(num_workers=dp_workers(),
+    collective_transport="pallas"), a rank a worker process: exact,
+    quantize="int8" and sharded=True."""
     from ray_tpu_torch.collective.backends import device_backend as db
     from ray_tpu_torch.models import transformer
 
@@ -1684,8 +2093,9 @@ def phase_train_gpt2_dp(dev):
         raise RuntimeError(f"GPT-2 has {numel} parameters, not {GPT2_NUMEL}")
     n_ln, n_flash = gpt2_launches_per_step(cfg)
     runs, total = {}, collections.Counter()
+    # B8 is w + 1 phase launches a call across processes
     want_ring = {"exact": {"ring_allreduce": 1},
-                 "int8": {"quantized_allreduce": 1},
+                 "int8": {"quantized_allreduce": dp_workers() + 1},
                  "sharded": {"ring_reducescatter": 1, "ring_allgather": 1}}
     weights = {}
     for label, kwargs in (("exact", {}), ("int8", {"quantize": "int8"}),
@@ -1697,6 +2107,10 @@ def phase_train_gpt2_dp(dev):
         per = fields["launches_per_rank_step"]
         ok = (all(per[k] == want_ring[label].get(k, 0)
                   for k in RING_COUNTERS)
+              and all(c[k] == DP_STEPS * want_ring[label].get(k, 0)
+                      for c in fields["ring_launches_by_rank"]
+                      for k in RING_COUNTERS)
+              and fields["distinct_rank_processes"]
               and per["layernorm"] == n_ln
               and per["flash_attn_fwd"] == n_flash
               and launches["flash_dense_routes"] == 0
@@ -1706,8 +2120,9 @@ def phase_train_gpt2_dp(dev):
         if not ok:
             raise RuntimeError(f"train_gpt2_dp {label}: {fields}")
     exact, int8 = runs["exact"], runs["int8"]
-    saved = db._qring_saved_bytes(db._qring_pad(GPT2_NUMEL, DP_WORKERS),
-                                  DP_WORKERS, torch.float32, "sum")
+    w = dp_workers()
+    saved = db._qring_saved_bytes(db._qring_pad(GPT2_NUMEL, w), w,
+                                  torch.float32, "sum")
     diff = (weights["sharded"] - weights["exact"]).abs()
     checks = {
         "sharded_bit_identical_to_exact": bool(
@@ -1752,11 +2167,27 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
 }
 
 
+# the phases that need the runtime (phase_runtime starts it)
+RUNTIME_PHASES = ("runtime", "collectives_procs", "train", "train_gpt2",
+                  "train_gpt2_dp")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
         return 2
+    import argparse
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--only", help="comma-separated phases to run after "
+                        "device and build (no result line)")
+    only = parser.parse_args().only
+    phases = None if only is None else set(only.split(","))
+
+    def run(name):
+        return phases is None or name in phases
+
     import ray_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     import ray_tpu_torch
@@ -1764,26 +2195,43 @@ def main():
     dev = torch.device("cuda", 0)
     smi = phase_device()
     phase_build()
-    summary = {"bn_bwd_sums": phase_kernels(dev),
-               **phase_transformer_kernels(dev)}
-    summary.update(phase_collectives(dev))
-    phase_resnet50_step(dev)
-    phase_gpt2_step(dev)
+    summary, launches = collections.defaultdict(dict), {}
+    if run("kernels"):
+        summary["bn_bwd_sums"] = phase_kernels(dev)
+        summary.update(phase_transformer_kernels(dev))
+    if run("collectives"):
+        summary.update(phase_collectives(dev))
+    if run("resnet50_step"):
+        phase_resnet50_step(dev)
+    if run("gpt2_step"):
+        phase_gpt2_step(dev)
     torch.cuda.empty_cache()
     try:
-        phase_runtime(dev, smi)
-        launches = {"bn_bwd_sums": phase_train(dev)}
-        launches.update(phase_train_gpt2(dev))
-        launches.update(phase_train_gpt2_dp(dev))
+        if any(run(p) for p in RUNTIME_PHASES):
+            phase_runtime(dev, smi)
+        if run("collectives_procs"):
+            # B5-B8 as the main path runs them: a rank a process
+            for name, row in phase_collectives_procs(dev).items():
+                summary[name].update(row)
+        if run("train"):
+            launches["bn_bwd_sums"] = phase_train(dev)
+        if run("train_gpt2"):
+            launches.update(phase_train_gpt2(dev))
+        if run("train_gpt2_dp"):
+            launches.update(phase_train_gpt2_dp(dev))
     finally:
         ray_tpu_torch.shutdown()
     print(smi)
+    if phases is not None:
+        return 0
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],
         **{k: summary[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
-                                          "library_ms")}}
+                                          "library_ms")},
+        **({"basis": summary[name]["basis"]} if "basis" in summary[name]
+           else {})}
         for name, (source, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -757,6 +757,18 @@ class CoreWorker:
             not_ready = overflow + not_ready
         return ready, not_ready
 
+    # internal kv (reference: python/ray/experimental/internal_kv.py —
+    # GCS-backed KV used by libraries for rendezvous/config)
+    def kv_put(self, key: str, value: bytes, overwrite=True) -> bool:
+        return self._io.run(self.gcs.call("kv_put", {
+            "key": key, "value": value, "overwrite": overwrite}))
+
+    def kv_get(self, key: str) -> bytes | None:
+        return self._io.run(self.gcs.call("kv_get", {"key": key}))
+
+    def kv_del(self, key: str) -> bool:
+        return self._io.run(self.gcs.call("kv_del", {"key": key}))
+
     # ------------------------------------------------------------------
     # function registry (reference: python/ray/function_manager.py)
     # ------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""The device plane's op semantics; port of the semantics of
+"""The device plane: its op semantics and the DEVICE tier; port of
 ray_tpu/collective/backends/xla_backend.py.
 
 The JAX package has two device tiers with one set of semantics:
@@ -8,15 +8,20 @@ only in what one op costs, never in what it returns. This module keeps
 those semantics for the port: the shape classes (`_bucket`), the
 block-scaled int8 format (`quantize_blocks`, `dequantize_blocks`), the
 quantized ring's padding and wire accounting (`_qring_pad`,
-`_qring_saved_bytes`), and `DeviceTransport`, which pads, promotes and
-slices around an `ops` object that does the ring work. The port's only
-ops object is `pallas_backend._PallasOps`; the XLA tier's counterpart
-(NCCL) is ROADMAP.md A5.
+`_qring_saved_bytes`), and `GroupSemantics`, which pads, promotes and
+slices around an `ops` object that does the ring work for the calling
+rank. Three ops objects exist: `_ProcessGroupOps` (this module), the
+DEVICE tier over a torch.distributed process group of the group's
+processes (NCCL between cards, gloo on the CPU); and the fused ring
+kernels of `pallas_backend`, one rank a process (`_IpcPallasOps`) or
+every rank in one process (`_PallasOps`).
 
-Every rank of a group lives in one process here, so each op takes the
-calling rank. A rank's ops run on its own CUDA stream, and nothing here
-waits on the host: a rank's ring kernel only finishes once every rank
-has launched its own, and the ranks are driven by one host thread.
+`DeviceTransport` is one rank of the DEVICE tier in its own process (the
+reference's `DeviceTransport`): the per-process `HostGroup` routes an op
+here when every rank voted for it (host_backend.py). Its process group is
+the group's own (parallel/multihost.py), never the process's default
+one. NCCL refuses two ranks on one card, so a group whose ranks share a
+card never votes for this tier.
 """
 
 from __future__ import annotations
@@ -106,12 +111,13 @@ def _pad(flat: torch.Tensor, length: int, dtype: torch.dtype):
     return out
 
 
-class DeviceTransport:
+class GroupSemantics:
     """The device plane's host-parity op surface (xla_backend.py:470-561)
-    over an `ops` object with the fused-kernel signatures of
-    `_PallasOps`: `allreduce(rank, x [B], op)`, `reducescatter_even(rank,
-    x [P])`, `allgather(rank, x [B]) -> [w, B]` and
-    `allreduce_quantized(rank, x [w*C] f32, op)`.
+    for the calling rank, over an `ops` object with the fused-kernel
+    signatures of `_PallasOps`: `allreduce(rank, x [B], op)`,
+    `reducescatter_even(rank, x [P])`, `allgather(rank, x [B]) -> [w, B]`,
+    `allreduce_quantized(rank, x [w*C] f32, op)`, `defer(rank, fn, src)`
+    and `device_of(rank)`.
 
     Semantics kept from the reference: payloads pad to `_bucket(n)`;
     integer MEAN sums exactly and divides in float64 (on the rank's
@@ -120,14 +126,12 @@ class DeviceTransport:
     combines with add and divides afterwards; reducescatter takes the
     even-split path only for SUM on rows % w == 0 without quantize, and
     otherwise allreduces and slices by `split_bounds`; allgather returns
-    a list."""
+    a list; broadcast is an allreduce SUM of the source's payload and
+    every other rank's zeros (xla_backend.py:180-190)."""
 
     def __init__(self, world_size: int, ops):
         self.world_size = world_size
         self._ops = ops
-
-    def _counted(self):
-        _cm.PALLAS_OPS += 1
 
     # -- op surface ------------------------------------------------------
 
@@ -139,7 +143,6 @@ class DeviceTransport:
         shape, n = tuple(arr.shape), arr.numel()
         floating = arr.is_floating_point()
         flat = arr.reshape(-1)
-        self._counted()
         if q and floating and op in _QRING_OPS:
             return self._allreduce_quantized(rank, flat, n, shape, in_dt,
                                              op)
@@ -175,7 +178,6 @@ class DeviceTransport:
 
     def allgather(self, rank: int, arr: torch.Tensor) -> list:
         shape, n = tuple(arr.shape), arr.numel()
-        self._counted()
         x = _pad(arr.reshape(-1), _bucket(n), arr.dtype)
         local = self._ops.allgather(rank, x)  # [w, B]
         return [local[i, :n].reshape(shape) for i in range(self.world_size)]
@@ -189,7 +191,6 @@ class DeviceTransport:
                 and not normalize_quantize(quantize)):
             # even split: the reduce-scatter moves 1/w of the bytes an
             # allreduce would
-            self._counted()
             mine = self._ops.reducescatter_even(
                 rank, arr.reshape(-1).contiguous())
             return mine.reshape((rows // w,) + tuple(arr.shape[1:]))
@@ -200,24 +201,188 @@ class DeviceTransport:
     def barrier(self, rank: int):
         """Orders the rank's stream after every rank's barrier: a
         one-element allreduce. The host does not wait (the reference
-        reads the result back; here that would wait for ranks the same
-        host thread has not driven yet)."""
-        self.allreduce(rank, torch.zeros(1, device=self._ops.devices[rank]))
+        reads the result back; in one process that would wait for ranks
+        the same host thread has not driven yet)."""
+        self.allreduce(rank, torch.zeros(1, device=self._ops.device_of(rank)))
 
-    def broadcast(self, rank: int, arr, src_rank: int = 0):
-        raise NotImplementedError(
-            "broadcast: the JAX package hands it to the XLA device tier, "
-            "whose port (NCCL) is ROADMAP.md A5")
+    def broadcast(self, rank: int, arr: torch.Tensor, src_rank: int = 0):
+        if not 0 <= src_rank < self.world_size:
+            raise ValueError(f"src_rank {src_rank} outside a group of "
+                             f"{self.world_size}")
+        mine = arr if rank == src_rank else torch.zeros_like(arr)
+        return self.allreduce(rank, mine, ReduceOp.SUM)
 
     def shift_right(self, rank: int, arr):
         raise NotImplementedError(
-            "shift_right: the JAX package hands it to the XLA device tier, "
-            "whose port (NCCL) is ROADMAP.md A5")
+            "shift_right (the XLA tier's ring permute) is not ported: "
+            "ROADMAP.md A5")
+
+
+# ---------------------------------------------------------------------------
+# the DEVICE tier: one rank a process, over a torch.distributed group
+# ---------------------------------------------------------------------------
+
+_PG_REDUCE = {"add": "SUM", "max": "MAX", "min": "MIN", "mul": "PRODUCT"}
+_COMBINE = {ReduceOp.SUM: "add", ReduceOp.MEAN: "add", ReduceOp.MAX: "max",
+            ReduceOp.MIN: "min", ReduceOp.PRODUCT: "mul"}
+_COMBINE_FNS = {"add": torch.add, "max": torch.maximum,
+                "min": torch.minimum, "mul": torch.mul}
+# payload dtypes the tier carries (NCCL's and gloo's)
+_PG_DTYPES = {torch.float16, torch.bfloat16, torch.float32, torch.float64,
+              torch.int8, torch.uint8, torch.int32, torch.int64}
+
+
+class _ProcessGroupOps:
+    """The DEVICE tier's ring work for this process's rank: the
+    collectives of a torch.distributed process group (NCCL on CUDA, gloo
+    on the CPU). The quantized allreduce runs the reference's ring schedule
+    (xla_backend.py:204-241) on an int8 wire over the group's
+    point-to-point sends: every hop quantizes the partial, the receiver
+    dequantizes and combines, and the reduced chunk is quantized once and
+    relayed as the same bytes, which gives `allreduce_quantized_plain`'s
+    bytes. NCCL's and gloo's own allreduce fold in their own order, so the
+    exact ops agree with the other tiers within float rounding (integers,
+    MAX and MIN exactly)."""
+
+    def __init__(self, pg, world: int, rank: int, device: torch.device):
+        self.pg = pg
+        self.world = world
+        self.rank = rank
+        self.device = device
+
+    def device_of(self, rank: int) -> torch.device:
+        return self.device
+
+    def _wait(self, work):
+        work.wait()  # NCCL: the current stream waits; gloo: the host
+
+    def _reduce_opts(self, combine: str):
+        import torch.distributed as dist
+
+        opts = dist.AllreduceOptions()
+        opts.reduceOp = getattr(dist.ReduceOp, _PG_REDUCE[combine])
+        return opts
+
+    def allreduce(self, rank: int, x: torch.Tensor, op) -> torch.Tensor:
+        out = x.clone()
+        self._wait(self.pg.allreduce([out], self._reduce_opts(
+            _COMBINE[ReduceOp(op)])))
+        return out
+
+    def reducescatter_even(self, rank: int, x: torch.Tensor) -> torch.Tensor:
+        out = x.new_empty(x.numel() // self.world)
+        self._wait(self.pg._reduce_scatter_base(out, x))
+        return out
+
+    def allgather(self, rank: int, x: torch.Tensor) -> torch.Tensor:
+        out = x.new_empty((self.world, x.numel()))
+        self._wait(self.pg.allgather([list(out.unbind(0))], [x]))
+        return out
+
+    def _shift(self, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Sends `tensors` to the right neighbour and returns the left
+        neighbour's. Even ranks send first and odd ranks receive first,
+        so that no ring of blocking sends can close (w = 2 included)."""
+        w, r = self.world, self.rank
+        got = [torch.empty_like(t) for t in tensors]
+        sends = lambda: [self.pg.send([t], (r + 1) % w, 0) for t in tensors]
+        recvs = lambda: [self.pg.recv([t], (r - 1) % w, 0) for t in got]
+        works = sends() + recvs() if r % 2 == 0 else recvs() + sends()
+        for work in works:
+            self._wait(work)
+        return got
+
+    def allreduce_quantized(self, rank: int, x: torch.Tensor,
+                            op) -> torch.Tensor:
+        w, r = self.world, self.rank
+        cmb = _COMBINE_FNS[_COMBINE[ReduceOp(op)]]
+        chunks = x.reshape(w, -1)
+        acc = chunks[r]
+        for s in range(1, w):
+            rq, rs = self._shift(list(quantize_blocks(acc)))
+            acc = cmb(dequantize_blocks(rq, rs), chunks[(r - s) % w])
+        send = list(quantize_blocks(acc))
+        out = torch.empty_like(chunks)
+        out[(r + 1) % w] = dequantize_blocks(*send)
+        for s in range(1, w):
+            send = self._shift(send)
+            out[(r - s + 1) % w] = dequantize_blocks(*send)
+        return out.reshape(-1)
+
+    def broadcast(self, rank: int, x: torch.Tensor, src: int) -> torch.Tensor:
+        import torch.distributed as dist
+
+        opts = dist.BroadcastOptions()
+        opts.rootRank = src
+        out = x.clone()
+        self._wait(self.pg.broadcast([out], opts))
+        return out
+
+    def defer(self, rank: int, fn, src: torch.Tensor) -> torch.Tensor:
+        return fn(src)
 
     def check(self, rank: int):
-        """Waits for the rank's collectives and raises TimeoutError if one
-        of them timed out (see `_PallasOps.check`)."""
-        self._ops.check(rank)
+        pass
 
     def close(self):
+        pass
+
+
+class DeviceTransport:
+    """Transport.DEVICE: one collective rank in this process over the
+    group's own torch.distributed process group (the reference's
+    `DeviceTransport`, xla_backend.py:374-571). A payload on another
+    device than the rank's moves to it and its result comes back, as the
+    reference lifts host arrays onto the device and delivers numpy."""
+
+    def __init__(self, world_size: int, rank: int, ops):
+        self.world_size = world_size
+        self.rank = rank
+        self._ops = ops
+        self._sem = GroupSemantics(world_size, ops)
+
+    @classmethod
+    def over(cls, pg, world_size: int, rank: int, device: torch.device):
+        return cls(world_size, rank,
+                   _ProcessGroupOps(pg, world_size, rank, device))
+
+    def dtype_ok(self, dtype) -> bool:
+        return dtype in _PG_DTYPES
+
+    def _counted(self):
+        _cm.DEVICE_OPS += 1
+
+    def _lift(self, arr):
+        return arr.to(self._ops.device_of(self.rank)).contiguous()
+
+    def _run(self, fn, arr, *args, **kwargs):
+        self._counted()
+        out = fn(self.rank, self._lift(arr), *args, **kwargs)
+        if isinstance(out, list):
+            return [o.to(arr.device) for o in out]
+        return out.to(arr.device)
+
+    def allreduce(self, arr, op: ReduceOp = ReduceOp.SUM, quantize=None):
+        return self._run(self._sem.allreduce, arr, op, quantize=quantize)
+
+    def allgather(self, arr) -> list:
+        return self._run(self._sem.allgather, arr)
+
+    def reducescatter(self, arr, op: ReduceOp = ReduceOp.SUM,
+                      quantize=None):
+        return self._run(self._sem.reducescatter, arr, op, quantize=quantize)
+
+    def broadcast(self, arr, src_rank: int = 0):
+        self._counted()
+        n = arr.numel()
+        x = _pad(self._lift(arr).reshape(-1), _bucket(n), arr.dtype)
+        out = self._ops.broadcast(self.rank, x, src_rank)[:n]
+        return out.reshape(arr.shape).to(arr.device)
+
+    def check(self):
+        """Waits for the rank's collectives; raises TimeoutError if one of
+        them timed out (the fused kernels' status words)."""
+        self._ops.check(self.rank)
+
+    def destroy(self):
         self._ops.close()

@@ -38,28 +38,43 @@ buffer, and every peer dequantizes those bytes from there, which is the
 relay's result. A rank learns the peers' addresses of the call (input
 and output, or the staging buffer) from their mailboxes (csrc header).
 
-Every rank of a group lives in this process. `_PallasOps` is the group's
-rendezvous: each rank's device (rank r on cuda:(r % device_count)), its
-stream, its status words, the buffers of every (op, dtype, chunk) class
-(mailboxes, flags, the quantized allreduce's hop slots and staging
-buffers, and a device table of their addresses), and the calls' sequence
-numbers. A rank's kernel runs on the rank's stream, which must be the
-current stream when the rank calls: its blocks spin until the peers'
-kernels, on their own streams, have published their buffers or sent
-their data, so two ranks on one stream would wait on each other forever
-(until the timeout). A rank's kernel of a call finishes only once every
-rank has launched its own, and the ranks are driven by one host thread;
-so nothing here waits on the host, and the caller must not either before
-every rank has made the call (the trainer steps its ranks in lockstep).
+Two ways to hold a group's ranks, one kernel protocol (csrc header):
 
-Each wrapper takes its plain PyTorch version for CPU tensors and launches
-its kernel for CUDA tensors, or raises; there is no other path. On the CPU
-a rank's call returns its output tensor at once and the group fills every
-rank's output when the last rank has called, by running the plain version
-over all ranks' inputs. `check(rank)` is where a rank's calls are known
-to be complete: it waits for the rank's stream and raises TimeoutError,
-naming the rank waited for, if one of its kernels gave up waiting for a
-peer (or, on the CPU, if a call still lacks a rank after the timeout).
+- `_IpcPallasOps`, one rank a process (`PallasTransport`, the tier of the
+  runtime's per-process `HostGroup`; the reference's layout). Each rank
+  allocates one buffer region a (op, dtype, chunk) class: its mailbox,
+  flags, the quantized allreduce's hop slots and staging buffer, and the
+  input and output buffers the direct kernels read and write across
+  ranks. The peers map it once through CUDA IPC (the handles go round the
+  group's hub at the class's first call), and the kernel takes a table of
+  the peers' buffers as this process maps them. A call copies its payload
+  into the region (B5, B6) and its result out of it (B5, B7): two passes
+  over the payload, the price of addresses that are fixed per class; B8
+  reads and writes the caller's tensors, since its peers touch only its
+  slots and staging buffer. The rank computes on its process's current
+  device and stream, and its host waits for nothing: a kernel spins until
+  the peers' kernels of the same call have started.
+- `_PallasOps`, every rank in this process (`LocalPallasTransport`, the
+  counterpart of the reference's single-controller device group): each
+  rank's device (rank r on cuda:(r % device_count)), its own stream, and
+  the peers' addresses from the mailboxes. A rank's kernel runs on the
+  rank's stream, which must be the current stream when the rank calls:
+  its blocks spin until the peers' kernels, on their own streams, have
+  published their buffers, so two ranks on one stream would wait on each
+  other forever (until the timeout). One host thread drives every rank,
+  so the caller must make every rank's call before it waits on any.
+
+Each wrapper of `_PallasOps` takes its plain PyTorch version for CPU
+tensors and launches its kernel for CUDA tensors, or raises; there is no
+other path (`_IpcPallasOps` takes CUDA tensors only: the HOST group sends
+it nothing else). On the CPU a rank's call returns its output tensor at
+once and the group fills every rank's output when the last rank has
+called, by running the plain version over all ranks' inputs. In one
+process, `check(rank)` is where a rank's calls are known to be complete:
+it waits for the rank's stream and raises TimeoutError, naming the rank
+waited for, if one of its kernels gave up waiting for a peer (or, on the
+CPU, if a call still lacks a rank after the timeout); across processes
+the host's wait for a peer's event raises so at the call.
 The plain versions run the reference's schedule over the w ranks'
 tensors, hop by hop; `chip_smoke.py` holds every kernel against them bit
 for bit, and the CPU tests hold the direct fold order and the quantized
@@ -69,12 +84,16 @@ allreduce's direct gather against them.
 from __future__ import annotations
 
 import ctypes
+import os
+import struct
 import time
 
 import torch
 
+from ray_tpu_torch.collective import metrics as _cm
 from ray_tpu_torch.collective.backends.device_backend import (
-    DeviceTransport, _QRING_OPS, dequantize_blocks, quantize_blocks)
+    DeviceTransport, GroupSemantics, _QRING_OPS, dequantize_blocks,
+    quantize_blocks)
 from ray_tpu_torch.collective.types import (QUANT_BLOCK, ReduceOp,
                                             is_cuda_tensor)
 from ray_tpu_torch.ops import _build
@@ -226,12 +245,28 @@ def _lib():
     if lib.direct_launch.argtypes is None:  # first use: C signatures
         tail = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p]
-        lib.direct_launch.argtypes = ([ctypes.c_int] * 3
-                                      + [ctypes.c_void_p] * 4 + tail)
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.direct_launch.argtypes = [i] * 3 + [vp] * 4 + [i, vp] + tail
         lib.direct_launch.restype = ctypes.c_int
-        lib.quantized_launch.argtypes = ([ctypes.c_int]
-                                         + [ctypes.c_void_p] * 5 + tail)
+        lib.quantized_launch.argtypes = [i] + [vp] * 5 + [i, vp] + tail
         lib.quantized_launch.restype = ctypes.c_int
+        vpp = ctypes.POINTER(ctypes.c_void_p)
+        lib.ring_ipc_alloc.argtypes = [ctypes.c_ulonglong, vpp]
+        lib.ring_ipc_handle.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+        lib.ring_ipc_open.argtypes = [ctypes.c_char_p, vpp]
+        lib.ring_ipc_close.argtypes = [ctypes.c_void_p]
+        lib.ring_ipc_free.argtypes = [ctypes.c_void_p]
+        lib.ring_event_create.argtypes = [vpp, ctypes.c_char_p]
+        lib.ring_event_open.argtypes = [ctypes.c_char_p, vpp]
+        lib.ring_event_record.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.ring_stream_wait.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.ring_event_destroy.argtypes = [ctypes.c_void_p]
+        for f in (lib.ring_ipc_alloc, lib.ring_ipc_handle, lib.ring_ipc_open,
+                  lib.ring_ipc_close, lib.ring_ipc_free,
+                  lib.ring_event_create, lib.ring_event_open,
+                  lib.ring_event_record, lib.ring_stream_wait,
+                  lib.ring_event_destroy):
+            f.restype = ctypes.c_int
         lib.ring_enable_peer_access.argtypes = [ctypes.c_int]
         lib.ring_enable_peer_access.restype = ctypes.c_int
         lib.ring_error_string.argtypes = [ctypes.c_int]
@@ -286,6 +321,9 @@ class _PallasOps:
         self._max_blocks = max(1, sms // (2 * per_card))
         for d in cards:
             torch.cuda.synchronize(d)
+
+    def device_of(self, rank: int) -> torch.device:
+        return self.devices[rank]
 
     # -- rendezvous -------------------------------------------------------
 
@@ -427,15 +465,15 @@ class _PallasOps:
             if kind in _KIND:
                 rc = lib.direct_launch(
                     _KIND[kind], _DTYPE[dtype], _OP[combine], x.data_ptr(),
-                    out.data_ptr(), own["peers"].data_ptr(), status, chunk,
-                    w, rank, own["nblocks"], seq, timeout_ns,
+                    out.data_ptr(), own["peers"].data_ptr(), None, -1,
+                    status, chunk, w, rank, own["nblocks"], seq, timeout_ns,
                     stream.cuda_stream)
             else:
                 rc = lib.quantized_launch(
                     _OP[combine], x.data_ptr(), out.data_ptr(),
-                    own["peers"].data_ptr(), own["stage"].data_ptr(), status,
-                    chunk, w, rank, own["nblocks"], seq, timeout_ns,
-                    stream.cuda_stream)
+                    own["peers"].data_ptr(), own["stage"].data_ptr(), None,
+                    -1, status, chunk, w, rank, own["nblocks"], seq,
+                    timeout_ns, stream.cuda_stream)
         if rc != 0:
             self.broken = f"rank {rank}'s {kind} did not launch"
             raise RuntimeError(f"{kind} launch failed: "
@@ -560,9 +598,11 @@ class _PallasOps:
         self._pending.clear()
 
 
-class PallasTransport(DeviceTransport):
-    """Transport.PALLAS: the device plane's op semantics
-    (`DeviceTransport`) over the fused ring kernels of `_PallasOps`."""
+class LocalPallasTransport(GroupSemantics):
+    """Every rank of a group in this process (the counterpart of the
+    reference's single-controller `XlaGroup`): the device plane's op
+    semantics (`GroupSemantics`) over the fused ring kernels of
+    `_PallasOps`, each op taking the calling rank."""
 
     def __init__(self, world_size: int, devices: list[torch.device],
                  timeout: float):
@@ -576,6 +616,472 @@ class PallasTransport(DeviceTransport):
     @property
     def devices(self):
         return self._ops.devices
+
+    def check(self, rank: int):
+        """Waits for the rank's collectives and raises TimeoutError if one
+        of them timed out (see `_PallasOps.check`)."""
+        self._ops.check(rank)
+
+    def close(self):
+        self._ops.close()
+
+
+# ---------------------------------------------------------------------------
+# one rank a process: the peers' buffers through CUDA IPC
+# ---------------------------------------------------------------------------
+
+_ALIGN = 256  # bytes: each buffer of a region starts on this boundary
+_IPC_HANDLE_BYTES = 64
+
+
+def _aligned(n: int) -> int:
+    return -(-n // _ALIGN) * _ALIGN
+
+
+def _raw(ptr: int, nbytes: int, dtype: torch.dtype) -> torch.Tensor:
+    """A tensor over `nbytes` of device memory at `ptr` (a region's
+    buffer), without a copy."""
+
+    class _View:
+        __cuda_array_interface__ = {"shape": (nbytes,), "typestr": "|u1",
+                                    "data": (ptr, False), "version": 3,
+                                    "strides": None}
+
+    return torch.as_tensor(_View(), device="cuda").view(dtype)
+
+
+class _IpcPallasOps:
+    """The fused ring collectives of one rank in its own process (the
+    counterpart of the reference's `_PallasOps`, same flat layouts),
+    `rank` always this process's: `allreduce(rank, x [B], op)`,
+    `reducescatter_even(rank, x [P])`, `allgather(rank, x [B]) -> [w, B]`,
+    `allreduce_quantized(rank, x [w*C] f32, op)`.
+
+    No kernel waits for another process (csrc header): each call is one
+    or more phase launches, ordered by rounds of CUDA IPC events. Every
+    rank has an event a slot (READY, DONE, then one a phase of B8), which
+    it records on its stream, and a counter a slot in a shared segment,
+    which it sets to the call's number just after. In a round a rank
+    records its event, waits on the host until every peer it needs has
+    set its counter to this call (a bounded wait: TimeoutError naming the
+    rank that did not come), and makes its stream wait for those peers'
+    events; the card then orders the phases without any kernel spinning.
+    B5-B7: READY (every input in its buffer, every previous output read
+    out), the fold or scatter, DONE (every rank's phase done: outputs
+    complete, inputs free). B8: phase 0, then each hop after the left
+    neighbour's previous phase, the gather after every peer staged its
+    chunk, DONE.
+
+    The peers' buffers of a class, and the events, are mapped at the
+    first use, which every rank makes at the same point of its op stream:
+    `allgather(bytes) -> [bytes of every rank]` is the group's exchange.
+    `blocks` is the grid of a phase launch."""
+
+    READY, DONE, HOP = 0, 1, 2  # event slots; HOP + s: B8's phase s
+
+    def __init__(self, world: int, rank: int, device: torch.device,
+                 timeout: float, allgather, blocks: int):
+        self.world = world
+        self.rank = rank
+        self.device = device
+        self.timeout = float(timeout)
+        self.broken: str | None = None
+        self._allgather = allgather
+        self._blocks = blocks
+        self._classes: dict[tuple, dict] = {}
+        self._call = 0
+        self._events = None  # [rank][slot] events (own created, peers')
+        self._counters = None
+
+    def device_of(self, rank: int) -> torch.device:
+        return self.device
+
+    def defer(self, rank: int, fn, src: torch.Tensor) -> torch.Tensor:
+        return fn(src)
+
+    # -- the event rounds -------------------------------------------------
+
+    def _slots(self) -> int:
+        return self.HOP + self.world
+
+    def _setup_events(self):
+        """This rank's events and the group's counter segment (made by
+        rank 0), exchanged once; every peer's events opened."""
+        import msgpack
+
+        from ray_tpu_torch.native.store import create_segment, open_segment
+
+        lib = _lib()
+        w, slots = self.world, self._slots()
+        size = 8 * w * slots
+        own, handles = [], b""
+        with torch.cuda.device(self.device):
+            for _ in range(slots):
+                ev = ctypes.c_void_p()
+                h = ctypes.create_string_buffer(_IPC_HANDLE_BYTES)
+                _ipc_check(lib, lib.ring_event_create(ctypes.byref(ev), h),
+                           "creating an interprocess event")
+                own.append(ev.value)
+                handles += h.raw
+            seg = None
+            if self.rank == 0:
+                seg = create_segment(f"ring_events_{os.getpid()}_"
+                                     f"{os.urandom(4).hex()}.seg", size)
+            mine = msgpack.packb({"events": handles,
+                                  "path": seg.path if seg else None})
+            infos = [msgpack.unpackb(b, raw=False)
+                     for b in self._allgather(mine)]
+            if seg is None:
+                seg = open_segment(infos[0]["path"], size)
+            events = []
+            for p, info in enumerate(infos):
+                if p == self.rank:
+                    events.append(own)
+                    continue
+                peer = []
+                for j in range(slots):
+                    ev = ctypes.c_void_p()
+                    h = info["events"][j * _IPC_HANDLE_BYTES:
+                                       (j + 1) * _IPC_HANDLE_BYTES]
+                    _ipc_check(lib, lib.ring_event_open(h, ctypes.byref(ev)),
+                               f"opening rank {p}'s event")
+                    peer.append(ev.value)
+                events.append(peer)
+        self._allgather(b"mapped")  # every rank has the segment open
+        if self.rank == 0:
+            os.unlink(seg.path)
+        self._events, self._counters = events, seg
+
+    def _counter_off(self, rank: int, slot: int) -> int:
+        return 8 * (rank * self._slots() + slot)
+
+    def _record(self, slot: int):
+        """Records this rank's event of `slot` on the current stream, then
+        says so to the peers: the counter of (rank, slot) := this call."""
+        if self._events is None:
+            self._setup_events()
+        lib = _lib()
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        with torch.cuda.device(self.device):
+            _ipc_check(lib, lib.ring_event_record(
+                self._events[self.rank][slot], stream), "recording an event")
+        struct.pack_into("<Q", self._counters.view,
+                         self._counter_off(self.rank, slot), self._call)
+
+    def _counter(self, rank: int, slot: int) -> int:
+        return struct.unpack_from("<Q", self._counters.view,
+                                  self._counter_off(rank, slot))[0]
+
+    def _await(self, slot: int, peers, what: str):
+        """The current stream waits for each peer's event of `slot` of this
+        call, once the peer has recorded it; TimeoutError naming the peer
+        that did not record it within the timeout, and every rank that
+        has not come to this call at all (each call records an event at
+        its start: READY, or B8's phase 0)."""
+        lib = _lib()
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        deadline = time.monotonic() + self.timeout
+        for p in peers:
+            spins = 0
+            while self._counter(p, slot) < self._call:
+                if time.monotonic() > deadline:
+                    absent = [q for q in range(self.world) if max(
+                        self._counter(q, j) for j in range(self._slots()))
+                        < self._call]
+                    self.broken = (
+                        f"rank {self.rank}'s collective waited more than "
+                        f"{self.timeout} s for {what} of rank {p} (call "
+                        f"{self._call})" + "".join(
+                            f"; rank {q} has not come to the call"
+                            for q in absent))
+                    raise TimeoutError(self.broken)
+                spins += 1
+                time.sleep(0 if spins < 1000 else 5e-5)
+            with torch.cuda.device(self.device):
+                _ipc_check(lib, lib.ring_stream_wait(
+                    stream, self._events[p][slot]), "waiting on an event")
+
+    def _round(self, slot: int, what: str):
+        """Records `slot`, then waits for every peer's."""
+        self._record(slot)
+        self._await(slot, [p for p in range(self.world) if p != self.rank],
+                    what)
+
+    # -- buffers and launches ---------------------------------------------
+
+    def _class(self, kind: str, dtype: torch.dtype, chunk: int) -> dict:
+        """The buffers of one (op, dtype, chunk) class: this rank's region
+        (B8's hop slots and staging buffer; B5's and B6's input buffer;
+        B5's and B7's output buffer), every peer's mapped, and the device
+        tables of their addresses: `peers` ([3][w]: row 2 the hop slots)
+        and `fixed` ([2][w]: B5 inputs and outputs, B6 inputs, B7 outputs,
+        B8 staging payloads and scales)."""
+        key = (kind, dtype, chunk)
+        cls = self._classes.get(key)
+        if cls is not None:
+            return cls
+        w = self.world
+        quantized = kind == "quantized"
+        qchunk = chunk + 4 * (chunk // QUANT_BLOCK)
+        payload = w * chunk * dtype.itemsize
+        sizes = {"slots": max(1, w - 1) * qchunk if quantized else 0,
+                 "stage": qchunk if quantized else 0,
+                 "in": payload if kind in ("allreduce", "reducescatter")
+                 else 0,
+                 "out": payload if kind in ("allreduce", "allgather") else 0}
+        offs, total = {}, 0
+        for name, size in sizes.items():
+            offs[name] = total
+            total += _aligned(size)
+        lib = _lib()
+        ptr, handle = ctypes.c_void_p(), ctypes.create_string_buffer(
+            _IPC_HANDLE_BYTES)
+        with torch.cuda.device(self.device):
+            _ipc_check(lib, lib.ring_ipc_alloc(total, ctypes.byref(ptr)),
+                       "allocating the buffers of a class")
+            own = ptr.value
+            _ipc_check(lib, lib.ring_ipc_handle(own, handle),
+                       "exporting the buffers of a class")
+            handles = self._allgather(handle.raw)
+            bases = []
+            for p, h in enumerate(handles):
+                if p == self.rank:
+                    bases.append(own)
+                    continue
+                peer = ctypes.c_void_p()
+                _ipc_check(lib, lib.ring_ipc_open(h, ctypes.byref(peer)),
+                           f"mapping rank {p}'s buffers")
+                bases.append(peer.value)
+        table = [0] * (2 * w) + [b + offs["slots"] for b in bases]
+        if quantized:
+            fixed = ([b + offs["stage"] for b in bases]
+                     + [b + offs["stage"] + chunk for b in bases])
+        else:
+            fixed = ([b + offs["in"] if sizes["in"] else 0 for b in bases]
+                     + [b + offs["out"] if sizes["out"] else 0
+                        for b in bases])
+        units = chunk // QUANT_BLOCK if quantized else chunk
+        per = _QBLOCKS_PER_BLOCK if quantized else _ELEMS_PER_BLOCK
+        cls = self._classes[key] = {
+            "nblocks": max(1, min(self._blocks, -(-units // per))),
+            "base": own, "bases": bases,
+            "peers": torch.tensor(table, dtype=torch.int64,
+                                  device=self.device),
+            "fixed": torch.tensor(fixed, dtype=torch.int64,
+                                  device=self.device),
+            "stage": own + offs["stage"],
+            "in": (_raw(own + offs["in"], payload, dtype)
+                   if sizes["in"] else None),
+            "out": (_raw(own + offs["out"], payload, dtype)
+                    if sizes["out"] else None)}
+        return cls
+
+    def _validate(self, rank, kind, combine, x):
+        if rank != self.rank:
+            raise ValueError(f"this process holds rank {self.rank}, not "
+                             f"rank {rank}")
+        if self.broken:
+            raise RuntimeError("collective group unusable after an earlier "
+                               f"failure: {self.broken}")
+        if (kind, x.dtype, combine) not in _BUILT:
+            raise TypeError(f"{kind} with {combine} on {x.dtype}: no CUDA "
+                            "instance is built (csrc: direct_launch, "
+                            "quantized_launch)")
+        if not is_cuda_tensor(x) or x.device != self.device:
+            raise ValueError(f"rank {rank}'s payload must be on "
+                             f"{self.device}, got {x.device}")
+        self._call += 1
+
+    def _launch(self, kind, combine, x, out, chunk, cls, phase):
+        """One phase launch of this rank's kernel on the current stream."""
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        lib = _lib()
+        # a phase launch waits for nothing, so it records no timeout
+        # status
+        args = (cls["peers"].data_ptr(), cls["fixed"].data_ptr(), phase,
+                None, chunk, self.world, self.rank, cls["nblocks"],
+                self._call & 0xFFFFFFFF, int(self.timeout * 1e9), stream)
+        with torch.cuda.device(self.device):
+            if kind in _KIND:
+                rc = lib.direct_launch(
+                    _KIND[kind], _DTYPE[x.dtype], _OP[combine], x.data_ptr(),
+                    out.data_ptr(), *args)
+            else:
+                rc = lib.quantized_launch(
+                    _OP[combine], x.data_ptr(), out.data_ptr(), args[0],
+                    cls["stage"], *args[1:])
+        if rc != 0:
+            self.broken = f"rank {self.rank}'s {kind} did not launch"
+            raise RuntimeError(f"{kind} launch failed: "
+                               f"{lib.ring_error_string(rc).decode()} "
+                               f"(rank {self.rank}, chunk {chunk}, "
+                               f"{x.dtype})")
+
+    def _direct(self, kind, combine, x, out, chunk, cls):
+        """B5-B7: READY, the one phase, DONE."""
+        self._round(self.READY, "the buffers (inputs in, outputs out)")
+        self._launch(kind, combine, x, out, chunk, cls, 0)
+        self._round(self.DONE, "the end of its phase")
+
+    # -- the four wrappers ------------------------------------------------
+
+    def allreduce(self, rank: int, x: torch.Tensor, op) -> torch.Tensor:
+        """B5: x [B] -> the reduced [B]: x into the region's input
+        buffer, the kernel, the region's output buffer out."""
+        global ALLREDUCE_LAUNCHES
+        combine = _COMBINE[ReduceOp(op)]
+        w, n = self.world, x.numel()
+        bp = w * -(-n // w)
+        self._validate(rank, "allreduce", combine, x)
+        cls = self._class("allreduce", x.dtype, bp // w)
+        cls["in"][:n].copy_(x)
+        if bp > n:
+            cls["in"][n:].zero_()
+        self._direct("allreduce", combine, cls["in"], cls["out"], bp // w,
+                     cls)
+        ALLREDUCE_LAUNCHES += 1
+        return cls["out"][:n].clone()
+
+    def reducescatter_even(self, rank: int, x: torch.Tensor) -> torch.Tensor:
+        """B6: x [P], P % w == 0 -> this rank's summed chunk [P / w]."""
+        global REDUCESCATTER_LAUNCHES
+        w, p = self.world, x.numel()
+        if p % w:
+            raise ValueError(f"reducescatter_even: {p} elements do not "
+                             f"split evenly over {w} ranks")
+        self._validate(rank, "reducescatter", "add", x)
+        cls = self._class("reducescatter", x.dtype, p // w)
+        cls["in"].copy_(x)
+        out = x.new_empty(p // w)
+        self._direct("reducescatter", "add", cls["in"], out, p // w, cls)
+        REDUCESCATTER_LAUNCHES += 1
+        return out
+
+    def allgather(self, rank: int, x: torch.Tensor) -> torch.Tensor:
+        """B7: x [B] -> every rank's payload, [w, B] in rank order."""
+        global ALLGATHER_LAUNCHES
+        w, b = self.world, x.numel()
+        self._validate(rank, "allgather", "add", x)
+        cls = self._class("allgather", x.dtype, b)
+        self._direct("allgather", "add", x.contiguous(), cls["out"], b, cls)
+        ALLGATHER_LAUNCHES += 1
+        return cls["out"].view(w, b).clone()
+
+    def allreduce_quantized(self, rank: int, x: torch.Tensor,
+                            op) -> torch.Tensor:
+        """B8: x f32 [w*C] with C % QUANT_BLOCK == 0 -> the int8-wire
+        reduced [w*C] f32, in w + 1 phases (csrc header); x and the
+        output are the caller's. Each phase launch counts."""
+        global QUANTIZED_LAUNCHES
+        op = ReduceOp(op)
+        w, b = self.world, x.numel()
+        if op not in _QRING_OPS:
+            raise ValueError(f"the quantized allreduce has no {op.value}")
+        if x.dtype != torch.float32 or b % (w * QUANT_BLOCK):
+            raise ValueError(f"allreduce_quantized takes f32 [w*C] with "
+                             f"C % {QUANT_BLOCK} == 0, got {x.dtype} [{b}]")
+        combine = _COMBINE[op]
+        if x.data_ptr() % 16:
+            x = x.clone()
+        self._validate(rank, "quantized", combine, x)
+        cls = self._class("quantized", x.dtype, b // w)
+        out = torch.empty_like(x)
+        c, left = b // w, (self.rank - 1) % w
+        if w == 1:
+            self._launch("quantized", combine, x, out, c, cls, 0)
+            QUANTIZED_LAUNCHES += 1
+            return out
+        for s in range(w):  # phase 0, then hops 1 .. w - 1
+            if s:
+                self._await(self.HOP + s - 1, [left],
+                            f"the int8 partial of hop {s}")
+            self._launch("quantized", combine, x, out, c, cls, s)
+            self._record(self.HOP + s)
+        self._await(self.HOP + w - 1,
+                    [p for p in range(w) if p != self.rank],
+                    "the staged reduced chunk")
+        self._launch("quantized", combine, x, out, c, cls, w)
+        self._round(self.DONE, "the end of its gather")
+        QUANTIZED_LAUNCHES += w + 1
+        return out
+
+    # -- completion and teardown ------------------------------------------
+
+    def check(self, rank: int):
+        """Waits until this rank's calls have run. (A peer that does not
+        come is found by the host's bounded waits, which raise at the
+        call.)"""
+        torch.cuda.synchronize(self.device)
+
+    def close(self):
+        """Waits for this rank's work, unmaps the peers' buffers and
+        events and frees its own. Every peer's phase that touched them
+        ended before this rank's last DONE round did."""
+        lib = _lib()
+        with torch.cuda.device(self.device):
+            torch.cuda.synchronize(self.device)
+            for cls in self._classes.values():
+                for p, base in enumerate(cls["bases"]):
+                    if p != self.rank:
+                        lib.ring_ipc_close(base)
+                lib.ring_ipc_free(cls["base"])
+            if self._events is not None:
+                for p, events in enumerate(self._events):
+                    for ev in events:
+                        lib.ring_event_destroy(ev)
+                self._counters.close(unlink=False)
+        self._classes.clear()
+        self._events = None
+
+
+def _ipc_check(lib, rc: int, what: str):
+    if rc:
+        raise RuntimeError(f"CUDA IPC, {what}: "
+                           f"{lib.ring_error_string(rc).decode()}")
+
+
+def supported(kind: str, dtype: torch.dtype, op=ReduceOp.SUM,
+              quantize=None, even: bool = False) -> bool:
+    """Whether one op of the device semantics reaches a built kernel
+    instance: the PALLAS tier votes for nothing else. kind: "allreduce",
+    "reducescatter" (even: the even-split reduce-scatter, B6) or
+    "allgather"."""
+    op = ReduceOp(op)
+    floating = dtype.is_floating_point
+    if kind in ("allreduce", "reducescatter") and quantize and floating \
+            and op in _QRING_OPS:
+        return True  # B8, in f32
+    if kind == "reducescatter" and even:
+        return dtype == torch.float32  # B6
+    if kind == "allgather":
+        return dtype == torch.float32  # B7
+    work = dtype
+    if op == ReduceOp.MEAN and dtype == torch.float16:
+        work = torch.float32
+    if op == ReduceOp.MEAN and not floating:
+        op = ReduceOp.SUM
+    return ("allreduce", work, _COMBINE[op]) in _BUILT
+
+
+class PallasTransport(DeviceTransport):
+    """Transport.PALLAS: one rank in this process; the device plane's op
+    semantics over the fused ring kernels of `_IpcPallasOps` (the
+    reference's `PallasTransport`, pallas_backend.py:487-502)."""
+
+    def __init__(self, world_size: int, rank: int, device: torch.device,
+                 timeout: float, allgather, blocks: int):
+        super().__init__(world_size, rank, _IpcPallasOps(
+            world_size, rank, device, timeout, allgather, blocks))
+
+    def _counted(self):
+        _cm.PALLAS_OPS += 1
+
+    def supports(self, kind: str, arr, op=ReduceOp.SUM, quantize=None):
+        rows = arr.shape[0] if arr.dim() else 1
+        even = (kind == "reducescatter" and ReduceOp(op) == ReduceOp.SUM
+                and arr.dim() and rows and rows % self.world_size == 0
+                and not quantize)
+        return supported(kind, arr.dtype, op, quantize, bool(even))
 
 
 def reset_launches():

@@ -1,34 +1,36 @@
 """Declarative collective groups; port of ray_tpu/collective/collective.py
 (reference: python/ray/util/collective/collective.py — GroupManager :29,
 init_collective_group :93, create_collective_group :126, allreduce :226,
-barrier :266, reduce :279, allgather :391, reducescatter).
+barrier :266, reduce :279, broadcast :340, allgather :391, reducescatter,
+send :496, recv :550).
 
-How a caller names its rank. In the JAX package each rank is a process,
-and a group name resolves to the calling process's rank. Here the ring
-kernels need every rank of a group in one address space until they
-cross processes (ROADMAP.md A5), so every rank of a group lives in one
-process: `init_collective_group(world_size, rank, ...)` is called once
-per rank (as each actor calls it in the reference) and returns that
-rank's `RankHandle`. The handle carries the rank's device and CUDA stream
-and has the op methods; the module functions take the same arguments as
-the reference's plus a keyword `rank=` and go through the handle of that
-rank. A `TrainWorker` actor hosts the ranks of its trainer and holds
-their handles.
+Two kinds of group, as in the reference:
 
-Rank r of a CUDA group sits on cuda:(r % torch.cuda.device_count()): on
-a machine with one card every rank shares it, each on its own stream;
-with w cards or more, each rank has a card of its own (peer access on).
-A rank's ops must run with its stream current
-(`with torch.cuda.stream(handle.stream)`), and every rank must make the
-same calls in the same order before the host waits on any of them:
-`handle.check()` is that wait, and raises TimeoutError if a rank waited
-longer than the group's timeout for a peer.
-
-Transports: "auto" and "pallas" are the fused ring kernels
-(backends/pallas_backend.py), for every payload size. "device" (the XLA
-tier, NCCL in the port) and the runtime's host tiers ("hub", "ring",
-"ring_unpipelined", "shm"), which carry ranks in processes of their own,
-are ROADMAP.md A5.
+- backend="host" (the default): one rank a process, the reference's
+  layout. `init_collective_group(world_size, rank, ...)` joins this
+  process to the group as `rank` (backends/host_backend.HostGroup), and
+  the module functions take the reference's arguments: a group name
+  resolves to the process's own rank. The data plane is chosen per op
+  (`Transport`): the fused ring kernels across processes when every rank
+  holds a CUDA card, NCCL when each holds its own, then the host tiers.
+  A rank computes on its process's current card and stream, and its
+  calls block as the reference's do: a peer that does not come raises
+  TimeoutError at the call, within the group's timeout; `check()` waits
+  for the rank's work on the card.
+  `create_collective_group` (or `declare_collective_group`) sets a group
+  up from the process that owns the actors, through each actor's
+  `__ray_collective_init__` (`CollectiveActorMixin`).
+- backend="xla": every rank of the group in this process, the
+  counterpart of the reference's single-controller device group
+  (xla_backend.XlaGroup), over the fused ring kernels of one address
+  space (pallas_backend.LocalPallasTransport). `init_collective_group` is
+  called once per rank and returns that rank's `RankHandle`; the module
+  functions then take the rank by keyword (`rank=`). Rank r of a CUDA
+  group sits on cuda:(r % torch.cuda.device_count()), each on its own
+  stream; a rank's ops must run with its stream current (`with
+  torch.cuda.stream(handle.stream)`), and every rank must make the same
+  calls in the same order before the host waits on any: `handle.check()`
+  is that wait.
 """
 
 from __future__ import annotations
@@ -38,15 +40,15 @@ import threading
 import torch
 
 from ray_tpu_torch._private.device import resolve_device
-from ray_tpu_torch.collective.backends.pallas_backend import PallasTransport
+from ray_tpu_torch.collective import metrics as _cm
 from ray_tpu_torch.collective.types import (Backend, ReduceOp, Transport,
                                             normalize_quantize)
 
 
 def rank_devices(world_size: int, device=None) -> list[torch.device]:
-    """Each rank's device: all "cpu" when the caller asks for the CPU,
-    else rank r on cuda:(r % torch.cuda.device_count()). None means
-    CUDA and raises without it."""
+    """Each rank's device in an in-process group: all "cpu" when the
+    caller asks for the CPU, else rank r on cuda:(r %
+    torch.cuda.device_count()). None means CUDA and raises without it."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         return [dev] * world_size
@@ -54,35 +56,26 @@ def rank_devices(world_size: int, device=None) -> list[torch.device]:
     return [torch.device("cuda", r % n) for r in range(world_size)]
 
 
-def resolve_transport(transport) -> Transport:
-    """The tier a group runs: PALLAS for "auto" and "pallas"; the others
-    are not ported yet and raise."""
-    t = Transport(transport)
-    if t in (Transport.AUTO, Transport.PALLAS):
-        return Transport.PALLAS
-    if t == Transport.DEVICE:
-        raise NotImplementedError(
-            "collective transport 'device' (the XLA tier, NCCL here) is "
-            "ROADMAP.md A5; this port carries every op on 'pallas'")
-    raise NotImplementedError(
-        f"collective transport {t.value!r} is a host tier of the runtime "
-        "for ranks in processes of their own, which is ROADMAP.md A5; "
-        "this port carries every op on 'pallas'")
-
-
-class CollectiveGroup:
-    """One group of ranks in this process, over one transport."""
+class LocalGroup:
+    """Every rank of one group in this process (backend="xla")."""
 
     def __init__(self, group_name: str, world_size: int, timeout: float,
                  transport, quantize, device):
+        from ray_tpu_torch.collective.backends.pallas_backend import (
+            LocalPallasTransport)
+
         if world_size < 1:
             raise ValueError(f"world_size must be >= 1, got {world_size}")
-        resolve_transport(transport)
+        if Transport(transport) not in (Transport.AUTO, Transport.PALLAS):
+            raise ValueError(
+                f"backend 'xla' runs the fused ring kernels in one process; "
+                f"transport {Transport(transport).value!r} is a tier of "
+                "backend 'host', one rank a process")
         self.group_name = group_name
         self.world_size = world_size
         self.timeout = timeout
         self.quantize = normalize_quantize(quantize)
-        self.transport = PallasTransport(
+        self.transport = LocalPallasTransport(
             world_size, rank_devices(world_size, device), timeout)
         self._handles: dict[int, RankHandle] = {}
 
@@ -111,10 +104,11 @@ class CollectiveGroup:
 
 
 class RankHandle:
-    """One rank's membership of a group: its device, its stream (None on
-    the CPU) and the op surface of the reference's group objects."""
+    """One rank's membership of an in-process group: its device, its
+    stream (None on the CPU) and the op surface of the reference's group
+    objects."""
 
-    def __init__(self, group: CollectiveGroup, rank: int):
+    def __init__(self, group: LocalGroup, rank: int):
         self.group = group
         self.rank = rank
         self.world_size = group.world_size
@@ -127,29 +121,33 @@ class RankHandle:
     def stream(self):
         return self.group.transport.streams[self.rank]
 
+    def _t(self):
+        _cm.PALLAS_OPS += 1
+        return self.group.transport
+
     def allreduce(self, tensor, op: ReduceOp = ReduceOp.SUM, quantize=None):
         """quantize: None = the group's default; "int8" = block-scaled
         int8 wire format; False = exact."""
-        return self.group.transport.allreduce(
-            self.rank, tensor, op, quantize=self.group._q(quantize))
+        return self._t().allreduce(self.rank, tensor, op,
+                                   quantize=self.group._q(quantize))
 
     def reduce(self, tensor, dst_rank: int = 0, op: ReduceOp = ReduceOp.SUM):
-        return self.group.transport.reduce(
-            self.rank, tensor, dst_rank, op, quantize=self.group._q(None))
+        return self._t().reduce(self.rank, tensor, dst_rank, op,
+                                quantize=self.group._q(None))
 
     def allgather(self, tensor) -> list:
-        return self.group.transport.allgather(self.rank, tensor)
+        return self._t().allgather(self.rank, tensor)
 
     def reducescatter(self, tensor, op: ReduceOp = ReduceOp.SUM,
                       quantize=None):
-        return self.group.transport.reducescatter(
-            self.rank, tensor, op, quantize=self.group._q(quantize))
+        return self._t().reducescatter(self.rank, tensor, op,
+                                       quantize=self.group._q(quantize))
 
     def broadcast(self, tensor, src_rank: int = 0):
-        return self.group.transport.broadcast(self.rank, tensor, src_rank)
+        return self._t().broadcast(self.rank, tensor, src_rank)
 
     def barrier(self):
-        self.group.transport.barrier(self.rank)
+        self._t().barrier(self.rank)
 
     def check(self):
         """Waits for this rank's collectives; TimeoutError if one of them
@@ -163,24 +161,42 @@ class GroupManager:
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._groups: dict[str, CollectiveGroup] = {}
+        self._groups: dict = {}
 
     def create_group(self, group_name: str, world_size: int, rank: int,
                      backend, timeout: float = 60.0,
-                     transport: str = "auto", quantize=None,
-                     device=None) -> RankHandle:
-        """Joins `rank` to the group, creating the group at its first
-        rank's call; a later rank's arguments must match the group's."""
-        if Backend(backend) == Backend.XLA:
-            raise NotImplementedError(
-                "backend 'xla' (the single-controller device group) is "
-                "ROADMAP.md A5; use backend 'host'")
+                     transport: str = "auto", quantize=None, device=None):
+        backend = Backend(backend)
+        if backend == Backend.AUTO:
+            backend = Backend.XLA if world_size == 1 else Backend.HOST
+        if backend == Backend.XLA:
+            return self._join_local(group_name, world_size, rank, timeout,
+                                    transport, quantize, device)
+        with self._lock:
+            if group_name in self._groups:
+                raise RuntimeError(f"group {group_name!r} already exists")
+        from ray_tpu_torch.collective.backends.host_backend import HostGroup
+
+        group = HostGroup(group_name, world_size, rank, timeout=timeout,
+                          transport=Transport(transport).value,
+                          quantize=normalize_quantize(quantize))
+        with self._lock:
+            self._groups[group_name] = group
+        return group
+
+    def _join_local(self, group_name, world_size, rank, timeout, transport,
+                    quantize, device) -> RankHandle:
+        """Joins `rank` to the in-process group, creating the group at its
+        first rank's call; a later rank's arguments must match the
+        group's."""
         with self._lock:
             group = self._groups.get(group_name)
             if group is None:
-                group = self._groups[group_name] = CollectiveGroup(
+                group = self._groups[group_name] = LocalGroup(
                     group_name, world_size, timeout, transport, quantize,
                     device)
+            elif not isinstance(group, LocalGroup):
+                raise RuntimeError(f"group {group_name!r} already exists")
             elif (group.world_size, group.timeout, group.quantize) != (
                     world_size, timeout, normalize_quantize(quantize)):
                 raise ValueError(
@@ -190,7 +206,7 @@ class GroupManager:
                     f"{timeout}, {quantize}")
             return group.join(rank)
 
-    def get_group(self, group_name: str) -> CollectiveGroup:
+    def get_group(self, group_name: str):
         with self._lock:
             group = self._groups.get(group_name)
         if group is None:
@@ -214,12 +230,16 @@ def init_collective_group(world_size: int, rank: int,
                           group_name: str = "default",
                           timeout: float = 60.0,
                           transport: str = "auto",
-                          quantize=None, device=None) -> RankHandle:
-    """Joins `rank` to a collective group of this process and returns its
-    handle (reference: collective.py:93). `quantize="int8"` makes the
-    group's default allreduce wire format block-scaled int8 (lossy);
-    per-op `quantize=` overrides it. `device`: None for CUDA (rank r on
-    cuda:(r % device_count)), "cpu" for the plain versions."""
+                          quantize=None, device=None):
+    """Joins this process to a collective group as `rank` (reference:
+    collective.py:93) and returns the group; with backend="xla", joins
+    `rank` to the group of this process's ranks and returns its
+    `RankHandle` (`device`: None for CUDA, "cpu" for the plain
+    versions). `transport` pins the HOST data plane to one tier
+    (pallas/device/shm/ring/ring_unpipelined/hub); "auto" routes per op.
+    `quantize="int8"` makes the group's default allreduce wire format
+    block-scaled int8 (lossy) on the tiers that have a wire; per-op
+    `quantize=` overrides it."""
     return _manager.create_group(group_name, world_size, rank, backend,
                                  timeout=timeout, transport=transport,
                                  quantize=quantize, device=device)
@@ -230,16 +250,24 @@ def create_collective_group(actors, world_size: int, ranks: list[int],
                             group_name: str = "default",
                             timeout: float = 60.0, quantize=None,
                             transport: str = "auto"):
-    """Declarative setup from the process that owns the actors
-    (reference: collective.py:126): tells every actor (here an object of
-    this process with an `init_collective_group` method, such as a
-    TrainWorker) to join the group with its rank."""
+    """Driver-side declarative setup (reference: collective.py:126): tells
+    every actor (a `CollectiveActorMixin` of the runtime) to join the
+    group with its rank, all at once, and waits for every rank."""
+    import ray_tpu_torch
+
     if len(actors) != len(ranks) or len(actors) != world_size:
         raise ValueError("actors/ranks/world_size mismatch")
-    return [actor.init_collective_group(world_size, rank, backend,
-                                        group_name, timeout, quantize,
-                                        transport)
-            for actor, rank in zip(actors, ranks)]
+    refs = [actor.__ray_collective_init__.remote(
+        world_size, rank, backend, group_name, timeout, quantize, transport)
+        for actor, rank in zip(actors, ranks)]
+    return ray_tpu_torch.get(refs, timeout=max(120.0, 2 * timeout))
+
+
+def declare_collective_group(actors, world_size: int, ranks: list[int],
+                             backend: str = "host",
+                             group_name: str = "default"):
+    return create_collective_group(actors, world_size, ranks, backend,
+                                   group_name)
 
 
 def is_group_initialized(group_name: str = "default") -> bool:
@@ -251,18 +279,22 @@ def is_group_initialized(group_name: str = "default") -> bool:
 
 
 def destroy_collective_group(group_name: str = "default"):
-    """Waits for every rank's stream, then frees the group."""
+    """Frees the group (an in-process group waits for its ranks' streams
+    first)."""
     _manager.destroy_group(group_name)
 
 
-def get_handle(group_name: str, rank: int) -> RankHandle:
-    return _manager.get_group(group_name).handle(rank)
+def get_group(group_name: str = "default"):
+    return _manager.get_group(group_name)
 
 
 def get_rank(group_name: str = "default") -> int:
-    """The process's rank in the group, where it holds one; a process
-    that holds several names each by its handle."""
-    ranks = sorted(_manager.get_group(group_name)._handles)
+    """The process's rank in the group; a process that holds several
+    ranks of an in-process group names each by its handle."""
+    group = _manager.get_group(group_name)
+    if not isinstance(group, LocalGroup):
+        return group.rank
+    ranks = sorted(group._handles)
     if len(ranks) != 1:
         raise ValueError(f"this process holds ranks {ranks} of group "
                          f"{group_name!r}; each rank's handle names it")
@@ -273,26 +305,71 @@ def get_collective_group_size(group_name: str = "default") -> int:
     return _manager.get_group(group_name).world_size
 
 
+def _member(group_name: str, rank: int | None):
+    """The group's op surface for the caller: the process's HostGroup, or
+    the named rank's handle of an in-process group."""
+    group = _manager.get_group(group_name)
+    if isinstance(group, LocalGroup):
+        if rank is None:
+            raise ValueError(f"group {group_name!r} holds every rank in this "
+                             "process: name the calling rank (rank=)")
+        return group.handle(rank)
+    if rank is not None and rank != group.rank:
+        raise ValueError(f"this process is rank {group.rank} of group "
+                         f"{group_name!r}, not rank {rank}")
+    return group
+
+
 def allreduce(tensor, group_name: str = "default",
-              op: ReduceOp = ReduceOp.SUM, quantize=None, *, rank: int):
+              op: ReduceOp = ReduceOp.SUM, quantize=None, *, rank=None):
     """`quantize` (None = the group's default; "int8" = block-scaled int8
-    wire format; False = exact)."""
-    return get_handle(group_name, rank).allreduce(tensor, op, quantize)
+    wire format; False = exact) applies on the tiers that have a wire to
+    compress: the fused kernels, the device ring and the host TCP ring.
+    hub/shm always carry exact payloads."""
+    return _member(group_name, rank).allreduce(tensor, op, quantize=quantize)
 
 
 def reduce(tensor, dst_rank: int = 0, group_name: str = "default",
-           op: ReduceOp = ReduceOp.SUM, *, rank: int):
-    return get_handle(group_name, rank).reduce(tensor, dst_rank, op)
+           op: ReduceOp = ReduceOp.SUM, *, rank=None):
+    return _member(group_name, rank).reduce(tensor, dst_rank, op)
 
 
-def allgather(tensor, group_name: str = "default", *, rank: int) -> list:
-    return get_handle(group_name, rank).allgather(tensor)
+def broadcast(tensor, src_rank: int = 0, group_name: str = "default", *,
+              rank=None):
+    return _member(group_name, rank).broadcast(tensor, src_rank)
+
+
+def allgather(tensor, group_name: str = "default", *, rank=None) -> list:
+    return _member(group_name, rank).allgather(tensor)
 
 
 def reducescatter(tensor, group_name: str = "default",
-                  op: ReduceOp = ReduceOp.SUM, quantize=None, *, rank: int):
-    return get_handle(group_name, rank).reducescatter(tensor, op, quantize)
+                  op: ReduceOp = ReduceOp.SUM, quantize=None, *, rank=None):
+    return _member(group_name, rank).reducescatter(tensor, op,
+                                                   quantize=quantize)
 
 
-def barrier(group_name: str = "default", *, rank: int):
-    get_handle(group_name, rank).barrier()
+def barrier(group_name: str = "default", *, rank=None):
+    _member(group_name, rank).barrier()
+
+
+def send(tensor, dst_rank: int, group_name: str = "default", tag: int = 0):
+    """Point-to-point, HOST groups only (the reference's)."""
+    _member(group_name, None).send(tensor, dst_rank, tag)
+
+
+def recv(src_rank: int, group_name: str = "default", tag: int = 0):
+    return _member(group_name, None).recv(src_rank, tag)
+
+
+class CollectiveActorMixin:
+    """Mixin giving an actor class the __ray_collective_init__ hook used by
+    create_collective_group."""
+
+    def __ray_collective_init__(self, world_size, rank, backend, group_name,
+                                timeout=60.0, quantize=None,
+                                transport="auto"):
+        init_collective_group(world_size, rank, backend, group_name,
+                              timeout=timeout, quantize=quantize,
+                              transport=transport)
+        return rank

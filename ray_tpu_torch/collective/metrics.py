@@ -1,15 +1,30 @@
-"""Collective data-plane counters, as plain integers; port of
-ray_tpu/collective/metrics.py.
+"""Collective data-plane counters, as plain integers of this process;
+port of ray_tpu/collective/metrics.py.
 
-The JAX package keeps one rank per process, so its counters are per
-rank. Here every rank of a group lives in one process, and these
-counters sum over the process's ranks.
+One rank a process (the per-process `HostGroup`), so the counters are the
+rank's; the in-process group of every rank (`backend="xla"`) sums its
+ranks'. Each op adds one to the counter of the tier that carried it, so
+a run can show which tier carried its ops:
 
-PALLAS_OPS: ops dispatched on the PALLAS tier (one call of the transport,
-    one ring kernel per rank).
+HUB_OPS, RING_OPS, SHM_OPS: ops on the host tiers (ring counts both the
+    pipelined and the unpipelined ring).
+DEVICE_OPS: ops on the DEVICE tier (a torch.distributed process group).
+PALLAS_OPS: ops on the PALLAS tier (the fused ring kernels).
 QUANT_SAVED: wire bytes the int8 block-scaled format avoided sending
-    against the exact dtype (`_qring_saved_bytes` per quantized call).
+    against the exact dtype (`_qring_saved_bytes` per quantized device or
+    pallas call; the host ring's socket bytes).
 """
 
+HUB_OPS = 0
+RING_OPS = 0
+SHM_OPS = 0
+DEVICE_OPS = 0
 PALLAS_OPS = 0
 QUANT_SAVED = 0
+
+TIERS = ("hub", "ring", "shm", "device", "pallas")
+
+
+def tier_counts() -> dict:
+    """{tier: ops it carried in this process}."""
+    return {t: globals()[f"{t.upper()}_OPS"] for t in TIERS}

@@ -11,12 +11,15 @@ import torch
 class Backend(str, enum.Enum):
     """Collective backends.
 
-    HOST — a group of ranks with a data plane chosen by `Transport`; in
-          this port every rank of a group lives in one process, and the
-          only data plane is PALLAS (the fused ring kernels).
-    XLA — the JAX package's single-controller device group; not ported
-          (ROADMAP.md queue A item 5).
-    AUTO — HOST.
+    HOST — one rank a process: the runtime's per-process collective group
+          (backends/host_backend.HostGroup), whose data plane is chosen per
+          op by `Transport`.
+    XLA — every rank of a group in one process, each on its own CUDA
+          stream (rank r on cuda:(r % device_count)), over the fused ring
+          kernels: the counterpart of the JAX package's single-controller
+          device group (xla_backend.XlaGroup). Its ranks are joined one by
+          one and named by their handles.
+    AUTO — XLA for a group of one, else HOST.
     """
 
     XLA = "xla"
@@ -25,17 +28,25 @@ class Backend(str, enum.Enum):
 
 
 class Transport(str, enum.Enum):
-    """Data-plane tiers, named as in the JAX package.
+    """HOST-backend data-plane tiers (selected per op by a unanimous vote,
+    payload size and node placement; pin one with transport=...).
 
-    PALLAS — the fused ring collectives, one hand-written CUDA kernel
-          per op and rank (backends/pallas_backend.py). It carries every
-          payload size here: the JAX package's 64 KB gate and its
-          fall-through to DEVICE come with ROADMAP.md A5 and A9.
-    DEVICE — the device plane of the JAX package (XLA collectives); its
-          port, over NCCL, is ROADMAP.md A5.
-    HUB, RING, RING_UNPIPELINED, SHM — the runtime's host tiers, for
-          ranks in processes of their own: ROADMAP.md A5.
-    AUTO — PALLAS in this port.
+    PALLAS — the fused ring collectives, one hand-written CUDA kernel per
+          op and rank (backends/pallas_backend.py), the peers' buffers
+          mapped through CUDA IPC: when every rank holds a card and a CUDA
+          payload of a built instance. It carries every payload size: the
+          JAX package's 64 KB ceiling is ROADMAP.md A9.
+    DEVICE — a torch.distributed process group of the group's own (NCCL
+          when every rank holds a card of its own; gloo on the CPU when
+          forced): backends/device_backend.DeviceTransport.
+    SHM — one mmap'd tmpfs segment per group when every rank shares a
+          node: collectives become pure memory traffic.
+    RING — direct rank-to-rank TCP ring, chunk-pipelined and zero-copy.
+    RING_UNPIPELINED — the reference's unpipelined ring ALLREDUCE, the
+          control arm of its perf A/B; other ops run the pipelined ring.
+    HUB — star topology through rank 0's socket; carries every op kind.
+    AUTO — pallas, then device, by vote; else shm when node-local, else
+          ring, else hub.
     """
 
     AUTO = "auto"
@@ -54,6 +65,13 @@ class ReduceOp(str, enum.Enum):
     MAX = "max"
     MEAN = "mean"
 
+
+_NUMPY_REDUCE = {
+    ReduceOp.SUM: "add",
+    ReduceOp.PRODUCT: "multiply",
+    ReduceOp.MIN: "minimum",
+    ReduceOp.MAX: "maximum",
+}
 
 # Block-scaled int8 quantization (EQuARX-style): payloads are cut into
 # QUANT_BLOCK-element blocks, each carried on the wire as int8 values

@@ -60,6 +60,7 @@ class GcsServer:
         return {
             "kv_put": self.h_kv_put,
             "kv_get": self.h_kv_get,
+            "kv_del": self.h_kv_del,
             "subscribe": self.h_subscribe,
             "unsubscribe": self.h_unsubscribe,
             "publish": self.h_publish,
@@ -85,6 +86,9 @@ class GcsServer:
 
     async def h_kv_get(self, conn, d):
         return self.kv.get(d["key"])
+
+    async def h_kv_del(self, conn, d):
+        return self.kv.pop(d["key"], None) is not None
 
     # ---- pubsub ----
     async def h_subscribe(self, conn, d):

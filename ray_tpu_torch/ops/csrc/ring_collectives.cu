@@ -15,8 +15,8 @@
 //                           int8 + one f32 scale per 256 values), its
 //                           gather half direct; see below.
 // Each rank of a group launches its kernel on its own stream. The ranks
-// may share one card or sit on several cards with peer access; the code is
-// the same.
+// may share one card or sit on several cards with peer access, in one
+// process or in processes of their own; the code is the same.
 //
 // Bound: bytes. A combine is one operation per element against 8-12
 // bytes moved, so the least time is the bytes the ranks must move through
@@ -46,14 +46,38 @@
 // int32 adds wrap; max and min propagate NaN as torch.maximum /
 // torch.minimum. Build without --use_fast_math.
 //
-// The protocol, one for B5-B8. One host thread launches the ranks in
-// turn, so a peer's buffers are not known when a rank is launched: each
-// rank publishes two addresses of its call in its mailbox (B5, B6: input
-// and output; B7: output; B8: its staging buffer's payload and scales),
-// then a release store (st.release.sys) of the call's sequence number, and
-// every block acquires (ld.acquire.sys) every peer's before it touches a
-// peer's memory. So a wait for a rank that never launched is the first
-// wait of every peer, and each names that rank. Block b of rank r works on
+// The protocol, one for B5-B8. A peer's buffers of a call are not known
+// when a rank is launched: each rank publishes two addresses of its call
+// in its mailbox (B5, B6: input and output; B7: output; B8: its staging
+// buffer's payload and scales), then a release store (st.release.sys) of
+// the call's sequence number, and every block acquires (ld.acquire.sys)
+// every peer's before it touches a peer's memory. Ranks in processes of
+// their own cannot use a peer's address: each maps the peers' buffers of
+// a class once through CUDA IPC (ring_ipc_*), the caller copies a call's
+// payload into and out of those buffers, and the launch passes a table of
+// the peers' two addresses as this process maps them (`fixed`).
+//
+// Processes that share a card do not run at the same time: the card
+// switches between their contexts, so a kernel that spins for a peer's
+// kernel of another process holds its time-slice while the peer cannot
+// run, and a call takes several slices. Across processes the kernels
+// therefore never wait: a launch names one phase of the call
+// (`phase` >= 0) and does only that phase's loads and stores, and the
+// caller orders the phases of the ranks with CUDA IPC events (the host
+// waits until a peer has recorded the event of the phase, then the
+// rank's stream waits for it; ring_event_*):
+//   B5, B6, B7: phase 0, the fold or the scatter, after every rank's
+//     input is in its buffer and every rank has read its previous output
+//     out of its buffer; then every rank's phase 0 is awaited before a
+//     rank reads its output or reuses its input buffer.
+//   B8: phase 0 quantizes chunk r into the right neighbour's slot 0;
+//     phase s = 1 .. w - 1 is hop s (after the left neighbour's phase
+//     s - 1), the last one staging the reduced chunk; phase w dequantizes
+//     every peer's staged chunk (after every peer's phase w - 1).
+// The mailbox and done flags are the protocol of ranks in one process
+// (`phase` = -1), where all ranks' kernels can run at once: a wait for a
+// rank that never launched is the first wait of every peer, and each
+// names that rank. Block b of rank r works on
 // slice b of its chunk(s) and talks only to block b of the peers (no grid
 // sync): it ends by posting a done flag, per (source rank, block), to each
 // peer (release), and returns only once its own w - 1 done flags for block
@@ -66,11 +90,12 @@
 // Each thread keeps 4 16-byte loads in flight a source (loads through L2
 // only, ld.global.cg, never a stale L1 line of a peer's buffer), then
 // stores each result once to each destination, streaming (evict-first):
-// no byte is touched twice. The grid is capped by the caller at SMs / (2 *
-// ranks on the card) blocks, so that every rank's kernel fits on the card
-// beside the others' work: a rank's blocks spin on flags that another
-// rank's kernel sets, and a spinning block must never keep its partner
-// from running.
+// no byte is touched twice. In one process the grid is capped by the
+// caller at SMs / (2 * ranks on the card) blocks, so that every rank's
+// kernel fits on the card beside the others' work: a rank's blocks spin on
+// flags that another rank's kernel sets, and a spinning block must never
+// keep its partner from running. A phase launch waits for nothing and
+// takes as many blocks as the caller gives it.
 //
 // The quantized allreduce (B8). Its wire is int8: every byte one rank's
 // kernel stores into, or reads from, another rank's memory is int8 payload
@@ -313,6 +338,10 @@ struct DirectArgs {
   unsigned seq;
   unsigned long long timeout_ns;
   void* stage;  // B8: the rank's staging buffer
+  // [2][world] addresses of every peer's two buffers of the call as this
+  // process maps them (see the header), or null: the mailboxes' own
+  const unsigned long long* fixed;
+  int phase;  // -1: the whole call, spinning for the peers; else one phase
 };
 
 // Publishes this call's two addresses (mine0, mine1) in the rank's mailbox
@@ -324,6 +353,16 @@ __device__ bool exchange(const DirectArgs& a, unsigned long long mine0,
                          unsigned long long* src, unsigned long long* dst,
                          unsigned long long deadline, bool* aligned) {
   const int w = a.world, r = a.rank;
+  if (a.phase >= 0) {  // the caller ordered the phases: no mailbox round
+    int al = 1;
+    for (int p = threadIdx.x; p < w; p += blockDim.x) {
+      src[p] = p == r ? mine0 : a.fixed[p];
+      dst[p] = p == r ? mine1 : a.fixed[w + p];
+      al &= (src[p] | dst[p]) % 16 == 0;
+    }
+    *aligned = __syncthreads_and(al) != 0;
+    return true;
+  }
   unsigned long long* const* mail =
       reinterpret_cast<unsigned long long* const*>(a.peers);
   if (threadIdx.x == 0) {
@@ -337,8 +376,8 @@ __device__ bool exchange(const DirectArgs& a, unsigned long long mine0,
     if (p != r) {
       if (good && spin_until(reinterpret_cast<const unsigned*>(mail[p] + 2),
                              a.seq, deadline)) {
-        a0 = ld_relaxed_u64(mail[p]);
-        a1 = ld_relaxed_u64(mail[p] + 1);
+        a0 = a.fixed ? a.fixed[p] : ld_relaxed_u64(mail[p]);
+        a1 = a.fixed ? a.fixed[w + p] : ld_relaxed_u64(mail[p] + 1);
       } else {
         if (good) record_timeout(a.status, waited, p, a.seq);
         good = 0;
@@ -495,7 +534,7 @@ __global__ void __launch_bounds__(kThreads) direct_reduce(DirectArgs a) {
   } else {
     fold<T, OP, ALL, 1, kUnroll>(src, dst, w, r, first, off, out, lo, hi);
   }
-  done_round(a, deadline);
+  if (a.phase < 0) done_round(a, deadline);
 }
 
 // B7: the block's slice [lo, hi) of x into slot r of every rank's output,
@@ -539,7 +578,7 @@ __global__ void __launch_bounds__(kThreads) direct_allgather(DirectArgs a) {
     scatter<4, kUnroll>(x, addrs + w, w, r, off, lo, hi);
   else
     scatter<1, kUnroll>(x, addrs + w, w, r, off, lo, hi);
-  done_round(a, deadline);
+  if (a.phase < 0) done_round(a, deadline);
 }
 
 // ---------------------------------------------------------------------------
@@ -733,15 +772,38 @@ __global__ void __launch_bounds__(kThreads) quantized_allreduce(
     requant<OP, false, true>(x, QBuf{}, own, out, qlo, qhi);
     return;
   }
+  signed char* const* slots =
+      reinterpret_cast<signed char* const*>(a.peers + 2 * w);
+  const int right = succ(r, w);
+  if (a.phase >= 0) {  // one phase; the caller ordered it after its inputs
+    const int s = a.phase;
+    if (s == 0) {
+      requant<OP, false, false>(x + r * C, QBuf{},
+                                slot(slots[right], 0, w, C), nullptr, qlo,
+                                qhi);
+    } else if (s < w) {
+      const int c = (r - s + w) % w;
+      const QBuf in = slot(slots[r], s - 1, w, C);
+      if (s < w - 1)
+        requant<OP, true, false>(x + c * C, in, slot(slots[right], s, w, C),
+                                 nullptr, qlo, qhi);
+      else  // c = r + 1: the reduced chunk, staged and into the output
+        requant<OP, true, true>(x + c * C, in, own, out + c * C, qlo, qhi);
+    } else {
+      for (int o = succ(r, w); o != r; o = succ(o, w))  // owner of o + 1
+        dequant(QBuf{reinterpret_cast<signed char*>(a.fixed[o]),
+                     reinterpret_cast<float*>(a.fixed[w + o])},
+                out + succ(o, w) * C, qlo, qhi);
+    }
+    return;
+  }
   const unsigned long long deadline = globaltimer() + a.timeout_ns;
   bool aligned;
   if (!exchange(a, reinterpret_cast<unsigned long long>(own.q),
                 reinterpret_cast<unsigned long long>(own.s), kWaitedStage,
                 addrs, addrs + w, deadline, &aligned))
     return;
-  signed char* const* slots =
-      reinterpret_cast<signed char* const*>(a.peers + 2 * w);
-  const int right = succ(r, w), left = r == 0 ? w - 1 : r - 1;
+  const int left = r == 0 ? w - 1 : r - 1;
   unsigned* const mine = flags_of(a, r);
   // flag rows: done [w], staged chunk by owner [w], hop [w - 1]
   const int kStaged = w, kHop = 2 * w;
@@ -797,17 +859,22 @@ extern "C" {
 // input, [world][chunk] (B7: [chunk]); out: its output, [world][chunk]
 // (B6: [chunk]). peers: the group's device table of [2][world] addresses
 // (every rank's mailbox, then every rank's [world][nblocks] done flags),
-// as DirectArgs says. Every rank of a call passes the same kind, dtype,
+// as DirectArgs says; fixed: null, or the peers' mapped inputs and
+// outputs ([2][world]); phase: -1 (the mailbox protocol) or 0 (the fold or
+// scatter alone, ordered by the caller; needs fixed). Every rank of a call passes the same kind, dtype,
 // op, chunk, nblocks and seq. Returns the cudaError_t of the launch, or
 // kErrUnsupported for an instance that is not built.
 int direct_launch(int kind, int dtype, int op, const void* x, void* out,
-                  const unsigned long long* peers, int* status,
+                  const unsigned long long* peers,
+                  const unsigned long long* fixed, int phase, int* status,
                   long long chunk, int world, int rank, int nblocks,
                   unsigned seq, unsigned long long timeout_ns,
                   void* stream) {
-  if (chunk <= 0 || world < 1 || rank < 0 || rank >= world || nblocks < 1)
+  if (chunk <= 0 || world < 1 || rank < 0 || rank >= world || nblocks < 1 ||
+      phase < -1 || phase > 0 || (phase == 0 && !fixed))
     return static_cast<int>(cudaErrorInvalidValue);
-  DirectArgs a{x, out, peers, status, chunk, world, rank, seq, timeout_ns};
+  DirectArgs a{x,    out,  peers,      status,  chunk,
+               world, rank, seq, timeout_ns, nullptr, fixed, phase};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kind == kAllreduce) {
     if (dtype == kF32 && op == kAdd)
@@ -837,22 +904,26 @@ int direct_launch(int kind, int dtype, int op, const void* x, void* out,
 // synchronise. op: 0 add, 1 max, 2 min. x, out: f32 [world][chunk], chunk
 // a multiple of 256, both 16-byte aligned. peers: the group's device table
 // of [3][world] addresses (every rank's mailbox, its [3 world - 1][nblocks]
-// flags and its hop slots), stage: this rank's staging buffer, as
-// DirectArgs and the header say. Every rank of a call passes the same op,
+// flags and its hop slots), stage: this rank's staging buffer, fixed:
+// null, or the peers' mapped staging payloads and scales ([2][world]);
+// phase: -1 (the mailbox protocol) or 0 .. world (one phase, ordered by
+// the caller; needs fixed), as DirectArgs and the header say. Every rank of a call passes the same op,
 // chunk, nblocks and seq. Returns the cudaError_t of the launch, or
 // kErrUnsupported for an instance that is not built.
 int quantized_launch(int op, const float* x, float* out,
                      const unsigned long long* peers, void* stage,
-                     int* status, long long chunk, int world, int rank,
-                     int nblocks, unsigned seq,
-                     unsigned long long timeout_ns, void* stream) {
+                     const unsigned long long* fixed, int phase, int* status,
+                     long long chunk, int world, int rank, int nblocks,
+                     unsigned seq, unsigned long long timeout_ns,
+                     void* stream) {
   if (chunk <= 0 || world < 1 || rank < 0 || rank >= world || nblocks < 1 ||
+      phase < -1 || phase > world || (phase >= 0 && !fixed) ||
       chunk % kQuantBlock != 0 ||
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out) |
        reinterpret_cast<uintptr_t>(stage)) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   DirectArgs a{x,    out,  peers,      status, chunk,
-               world, rank, seq, timeout_ns, stage};
+               world, rank, seq, timeout_ns, stage, fixed, phase};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (op == kAdd)
     return launch_direct(quantized_allreduce<kAdd>, nblocks, a, s);
@@ -872,6 +943,75 @@ int ring_enable_peer_access(int peer) {
     return 0;
   }
   return static_cast<int>(err);
+}
+
+// CUDA IPC for ranks in processes of their own: a class's buffers are
+// one allocation a rank, zeroed before its handle is shared, and mapped
+// once by every peer.
+
+// A zeroed allocation of `bytes` on the current device (synchronised).
+int ring_ipc_alloc(unsigned long long bytes, void** ptr) {
+  cudaError_t err = cudaMalloc(ptr, bytes);
+  if (err == cudaSuccess) err = cudaMemset(*ptr, 0, bytes);
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  return static_cast<int>(err);
+}
+
+// The allocation's handle, CUDA_IPC_HANDLE_SIZE (64) bytes.
+int ring_ipc_handle(void* ptr, void* handle) {
+  return static_cast<int>(
+      cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), ptr));
+}
+
+// Maps a peer's allocation into this process (peer access enabled on
+// demand where the peer's card is another).
+int ring_ipc_open(const void* handle, void** ptr) {
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return static_cast<int>(
+      cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess));
+}
+
+int ring_ipc_close(void* ptr) {
+  return static_cast<int>(cudaIpcCloseMemHandle(ptr));
+}
+
+int ring_ipc_free(void* ptr) { return static_cast<int>(cudaFree(ptr)); }
+
+// Interprocess events: one a (rank, phase slot), recorded by its rank on
+// its stream and awaited by the peers' streams.
+int ring_event_create(void** event, void* handle) {
+  cudaEvent_t ev;
+  cudaError_t err = cudaEventCreateWithFlags(
+      &ev, cudaEventDisableTiming | cudaEventInterprocess);
+  if (err == cudaSuccess)
+    err = cudaIpcGetEventHandle(static_cast<cudaIpcEventHandle_t*>(handle),
+                                ev);
+  *event = ev;
+  return static_cast<int>(err);
+}
+
+int ring_event_open(const void* handle, void** event) {
+  cudaIpcEventHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  cudaEvent_t ev;
+  const cudaError_t err = cudaIpcOpenEventHandle(&ev, h);
+  *event = ev;
+  return static_cast<int>(err);
+}
+
+int ring_event_record(void* event, void* stream) {
+  return static_cast<int>(cudaEventRecord(static_cast<cudaEvent_t>(event),
+                                          static_cast<cudaStream_t>(stream)));
+}
+
+int ring_stream_wait(void* stream, void* event) {
+  return static_cast<int>(cudaStreamWaitEvent(
+      static_cast<cudaStream_t>(stream), static_cast<cudaEvent_t>(event), 0));
+}
+
+int ring_event_destroy(void* event) {
+  return static_cast<int>(cudaEventDestroy(static_cast<cudaEvent_t>(event)));
 }
 
 const char* ring_error_string(int code) {

@@ -8,10 +8,11 @@ the loss stays on the device, so an epoch issues no host sync until its
 end, where all losses come over at once (as the JAX operator's one
 `float` per loss after the loop).
 
-With world_size > 1 the operator is one rank of a collective group of
-this process (`group_name`; collective/collective.py) and runs its work
-on the rank's CUDA stream. A step is the gradient step, which flattens
-every gradient into one f32 bucket, then:
+With world_size > 1 the operator is one rank of a collective group
+(`group_name`; collective/collective.py), the only rank of its process:
+it computes on its process's current device and stream, and its
+collective calls block as the reference's do. A step is the gradient
+step, which flattens every gradient into one f32 bucket, then:
 - replicated: `_allreduce_grads` (the group's allreduce, int8 under the
   group's quantize default) divided by world_size, then the optimizer's
   update of every parameter;
@@ -19,14 +20,11 @@ every gradient into one f32 bucket, then:
   the bucket padded to the shard layout (train/sharding.py), the user's
   optimizer updating this rank's flat span with g / world_size, then
   `_allgather_params`. The JAX operator takes the gathered shards through
-  host numpy; here they stay on the device, through the fused allgather,
-  relaying the same bytes.
-A rank's ring kernel finishes only once every rank has launched its own,
-so the ranks step in lockstep: `train_epoch_stages` is the epoch as a
-generator that yields right after each collective call, and
-`Trainer.train` advances every rank's generator in turn (see
-`lockstep`). The host syncs once, at the epoch's end, where it also
-reads the group's timeout status.
+  host numpy; here a CUDA rank's stay on the device, through the fused
+  allgather, relaying the same bytes.
+On the card a collective call returns once the rank's kernels are
+enqueued (a peer that does not come raises TimeoutError at the call);
+the host syncs once, at the epoch's end (`HostGroup.check`).
 
 Mesh mode and the compile cache of the JAX operator are later slices of
 the port (ROADMAP.md).
@@ -34,7 +32,6 @@ the port (ROADMAP.md).
 
 from __future__ import annotations
 
-import contextlib
 import time
 from typing import Any, Callable, Iterable
 
@@ -57,15 +54,18 @@ class TrainingOperator:
         self.world_size = world_size
         self.device = resolve_device(device)
         self._group_name = group_name
-        self._handle = None
+        self._group = None
         if world_size > 1:
             if group_name is None:
                 raise ValueError("world_size > 1 needs the collective group "
                                  "of the ranks (group_name)")
-            self._handle = col.get_handle(group_name, world_rank)
-            if self._handle.device != self.device:
-                raise ValueError(f"rank {world_rank} sits on "
-                                 f"{self._handle.device}, not {self.device}")
+            self._group = col.get_group(group_name)
+            if (self._group.rank, self._group.world_size) != (world_rank,
+                                                              world_size):
+                raise ValueError(
+                    f"group {group_name!r} holds rank {self._group.rank} of "
+                    f"{self._group.world_size}, not {world_rank} of "
+                    f"{world_size}")
         # sharded stays on at world_size == 1 (collectives degenerate to
         # identity), as in the JAX operator
         self._sharded = bool(self.config.get("sharded_update"))
@@ -78,11 +78,6 @@ class TrainingOperator:
         if not self._registered:
             raise RuntimeError(
                 "TrainingOperator.setup() must call self.register(...)")
-        if self._handle is not None and self._handle.stream is not None:
-            # the rank's stream starts after the set-up's work (model,
-            # optimizer state, device-resident batches)
-            self._handle.stream.wait_stream(
-                torch.cuda.current_stream(self.device))
 
     # ------------------------------------------------------------------
     # user surface
@@ -163,15 +158,6 @@ class TrainingOperator:
             return type(batch)(self._to_device(b) for b in batch)
         return torch.as_tensor(batch).to(self.device, non_blocking=True)
 
-    def _on_stream(self):
-        """The rank's stream as the current stream (nothing on the CPU or
-        for a single worker). Entered anew for each stretch of work
-        between two yields: a stream context must not span a yield, when
-        another rank's work runs."""
-        stream = self._handle.stream if self._handle is not None else None
-        return (torch.cuda.stream(stream) if stream is not None
-                else contextlib.nullcontext())
-
     def _grad_step(self, batch):
         """Loss (on the device) and every gradient in one flat f32
         bucket, in parameter order."""
@@ -184,12 +170,10 @@ class TrainingOperator:
         return loss.detach(), flat
 
     def _allreduce_grads(self, flat_grads):
-        """The gradient bucket summed over the ranks (the group's quantize
-        default applies to the wire). The caller divides by world_size
-        once every rank has made the call (on the CPU the sum is filled
-        in only then)."""
-        return col.allreduce(flat_grads, group_name=self._group_name,
-                             rank=self.world_rank)
+        """The gradient bucket averaged over the ranks (the group's
+        quantize default applies to the wire)."""
+        total = col.allreduce(flat_grads, group_name=self._group_name)
+        return total / self.world_size
 
     def _reducescatter_grads(self, flat_grads):
         """Sharded step, wire half 1: the bucket padded to the shard
@@ -199,8 +183,7 @@ class TrainingOperator:
             self._pad_numel - self._numel)])
         if self.world_size == 1:
             return padded  # the whole padded bucket IS the rank's span
-        return col.reducescatter(padded, group_name=self._group_name,
-                                 rank=self.world_rank)
+        return col.reducescatter(padded, group_name=self._group_name)
 
     def _allgather_params(self):
         """Sharded step, wire half 2: every rank's updated shard, in rank
@@ -209,8 +192,7 @@ class TrainingOperator:
         shard = self._param_shard.detach()
         if self.world_size == 1:
             return [shard]
-        return col.allgather(shard, group_name=self._group_name,
-                             rank=self.world_rank)
+        return col.allgather(shard, group_name=self._group_name)
 
     def _set_params(self, shards):
         flat = torch.cat(shards)[:self._numel]
@@ -226,74 +208,48 @@ class TrainingOperator:
         self.optimizer.step()
 
     def _step(self, batch):
-        """One step as a generator that yields right after each collective
-        call and returns the loss, still on the device. A single
-        replicated worker runs the fused step and never yields."""
-        with self._on_stream():
-            batch = self._to_device(batch)
-            if self.world_size == 1 and not self._sharded:
-                self.optimizer.zero_grad(set_to_none=True)
-                loss = self._loss_fn(self.model, batch)
-                loss.backward()
-                self.optimizer.step()
-                return loss.detach()
-            loss, flat = self._grad_step(batch)
-            if self._sharded:
-                gshard = self._reducescatter_grads(flat)
-            else:
-                total = self._allreduce_grads(flat)
-        yield
-        with self._on_stream():
-            if not self._sharded:
-                self._apply_grads(total / self.world_size)
-                return loss
-            # ZeRO: update this rank's 1/N of (params, optimizer state),
-            # elementwise the same arithmetic as the replicated update
-            self._param_shard.grad = gshard / self.world_size
+        """One step; returns the loss, still on the device."""
+        batch = self._to_device(batch)
+        if self.world_size == 1 and not self._sharded:
+            self.optimizer.zero_grad(set_to_none=True)
+            loss = self._loss_fn(self.model, batch)
+            loss.backward()
             self.optimizer.step()
-            shards = self._allgather_params()
-        yield
-        with self._on_stream():
-            self._set_params(shards)
+            return loss.detach()
+        loss, flat = self._grad_step(batch)
+        if not self._sharded:
+            self._apply_grads(self._allreduce_grads(flat))
+            return loss
+        # ZeRO: update this rank's 1/N of (params, optimizer state),
+        # elementwise the same arithmetic as the replicated update
+        self._param_shard.grad = (self._reducescatter_grads(flat)
+                                  / self.world_size)
+        self.optimizer.step()
+        self._set_params(self._allgather_params())
         return loss
-
-    def _single(self, what: str):
-        if self.world_size > 1:
-            raise RuntimeError(
-                f"{what}: a rank of a group of {self.world_size} steps in "
-                "lockstep with its peers; Trainer.train drives every rank's "
-                "train_epoch_stages")
 
     def train_batch(self, batch) -> dict:
         """Sync path for step-at-a-time callers; returns a host float."""
-        self._single("train_batch")
-        loss = lockstep([self._step(batch)])[0]
+        loss = self._step(batch)
         self.global_step += 1
         return {"train_loss": float(loss)}
 
     def train_epoch(self, num_steps: int | None = None) -> dict:
-        self._single("train_epoch")
-        return lockstep([self.train_epoch_stages(num_steps)])[0]
-
-    def train_epoch_stages(self, num_steps: int | None = None):
-        """train_epoch as a generator that yields right after each
-        collective call and returns the epoch's result dict."""
         if self._train_loader is None:
             raise RuntimeError("no train_loader registered")
         self.model.train()
         t0 = time.perf_counter()
         losses, samples = [], 0
         for step, batch in enumerate(self._train_loader, 1):
-            losses.append((yield from self._step(batch)))
+            losses.append(self._step(batch))
             self.global_step += 1
             samples += _batch_size(batch)
             if num_steps is not None and step >= num_steps:
                 break
         # One sync for the whole epoch: the loop only enqueued work.
-        with self._on_stream():
-            losses = torch.stack(losses).tolist() if losses else []
-        if self._handle is not None:
-            self._handle.check()  # TimeoutError if a ring call gave up
+        losses = torch.stack(losses).tolist() if losses else []
+        if self._group is not None:
+            self._group.check()  # the epoch's one wait for the card
         dt = time.perf_counter() - t0
         self.epoch += 1
         return {
@@ -316,7 +272,7 @@ class TrainingOperator:
         saved = {n: b.clone() for n, b in self.model.named_buffers()}
         metrics, samples = [], 0
         try:
-            with torch.no_grad(), self._on_stream():
+            with torch.no_grad():
                 for step, batch in enumerate(self._val_loader, 1):
                     metrics.append(self._eval_fn(self.model,
                                                  self._to_device(batch)))
@@ -324,12 +280,11 @@ class TrainingOperator:
                     if num_steps is not None and step >= num_steps:
                         break
         finally:
-            with torch.no_grad(), self._on_stream():
+            with torch.no_grad():
                 for n, b in self.model.named_buffers():
                     b.copy_(saved[n])
         # to the host after the loop: the loop only enqueued work
-        with self._on_stream():
-            host = [{k: float(v) for k, v in m.items()} for m in metrics]
+        host = [{k: float(v) for k, v in m.items()} for m in metrics]
         out = {k: float(np.mean([m[k] for m in host]))
                for k in (host[0] if host else {})}
         out["num_samples"] = samples
@@ -344,15 +299,14 @@ class TrainingOperator:
         optimizer's state: `opt_state` when replicated; under
         sharded_update, `sharded_update: True` and this rank's
         `opt_shard` (opt_shard_state), as the JAX operator writes it."""
-        with self._on_stream():  # the copies wait for the rank's steps
-            params, model_state = self._to_tree(self.model)
-            out = {"params": params, "model_state": model_state,
-                   "epoch": self.epoch, "global_step": self.global_step}
-            if self._sharded:
-                out["sharded_update"] = True
-                out["opt_shard"] = self.opt_shard_state()
-            else:
-                out["opt_state"] = _to_host(self.optimizer.state_dict())
+        params, model_state = self._to_tree(self.model)
+        out = {"params": params, "model_state": model_state,
+               "epoch": self.epoch, "global_step": self.global_step}
+        if self._sharded:
+            out["sharded_update"] = True
+            out["opt_shard"] = self.opt_shard_state()
+        else:
+            out["opt_state"] = _to_host(self.optimizer.state_dict())
         return out
 
     def load_state_dict(self, state: dict):
@@ -371,20 +325,18 @@ class TrainingOperator:
                 "sharded checkpoint cannot load into an unsharded "
                 "trainer; construct Trainer(sharded=True) or load "
                 "the sharded manifest via Trainer.load()")
-        with self._on_stream():
-            self._from_tree(self.model, state["params"],
-                            state["model_state"])
-            if self._sharded:
-                # in place: the optimizer holds this Parameter
-                with torch.no_grad():
-                    self._param_shard.copy_(self._span_of(torch.cat(
-                        [p.reshape(-1) for p in self._params])))
-                sh = state.get("opt_shard")
-                if (sh is not None and sh["world_size"] == self.world_size
-                        and sh["rank"] == self.world_rank):
-                    self.load_opt_shard(sh)
-            else:
-                self.optimizer.load_state_dict(state["opt_state"])
+        self._from_tree(self.model, state["params"], state["model_state"])
+        if self._sharded:
+            # in place: the optimizer holds this Parameter
+            with torch.no_grad():
+                self._param_shard.copy_(self._span_of(torch.cat(
+                    [p.reshape(-1) for p in self._params])))
+            sh = state.get("opt_shard")
+            if (sh is not None and sh["world_size"] == self.world_size
+                    and sh["rank"] == self.world_rank):
+                self.load_opt_shard(sh)
+        else:
+            self.optimizer.load_state_dict(state["opt_state"])
         self.epoch = state["epoch"]
         self.global_step = state["global_step"]
 
@@ -405,9 +357,8 @@ class TrainingOperator:
         step; SGD with momentum: momentum_buffer); empty before the first
         step. (optax's leaves differ: the two packages' optimizer states
         are not interchangeable.)"""
-        with self._on_stream():
-            state = self.optimizer.state_dict()["state"].get(0, {})
-            leaves = [_to_host(state[k]) for k in sorted(state)]
+        state = self.optimizer.state_dict()["state"].get(0, {})
+        leaves = [_to_host(state[k]) for k in sorted(state)]
         return {"rank": self.world_rank, "world_size": self.world_size,
                 "span": (self._shard_lo, self._shard_hi),
                 "numel": self._numel, "pad_numel": self._pad_numel,
@@ -432,10 +383,9 @@ class TrainingOperator:
             raise ValueError(f"optimizer shard holds {len(leaves)} state "
                              f"leaves; this optimizer's state has {names}")
         groups = self.optimizer.state_dict()["param_groups"]
-        with self._on_stream():
-            self.optimizer.load_state_dict({
-                "state": {0: dict(zip(names, leaves))} if leaves else {},
-                "param_groups": groups})
+        self.optimizer.load_state_dict({
+            "state": {0: dict(zip(names, leaves))} if leaves else {},
+            "param_groups": groups})
 
 
 def _to_host(obj):
@@ -447,31 +397,6 @@ def _to_host(obj):
     if isinstance(obj, (list, tuple)):
         return type(obj)(_to_host(v) for v in obj)
     return obj
-
-
-def lockstep(stages: list) -> list:
-    """Runs the ranks' step generators in lockstep: each is advanced to
-    its next collective call in rank order, round after round, so every
-    rank's k-th collective is launched before any rank waits on its own;
-    returns their return values. Every generator must make the same
-    number of collective calls."""
-    results = [None] * len(stages)
-    live = list(range(len(stages)))
-    while live:
-        done = []
-        for i in live:
-            try:
-                next(stages[i])
-            except StopIteration as stop:
-                results[i] = stop.value
-                done.append(i)
-        if done and len(done) != len(live):
-            raise RuntimeError(
-                f"ranks {done} finished while ranks "
-                f"{sorted(set(live) - set(done))} still had collectives to "
-                "make: every rank must take the same number of steps")
-        live = [i for i in live if i not in done]
-    return results
 
 
 def _batch_size(batch) -> int:

@@ -1,29 +1,29 @@
 """Trainer and TrainWorker; port of ray_tpu/train/trainer.py (reference:
 python/ray/util/sgd/torch/torch_trainer.py).
 
-The ranks run in a `TrainWorker` actor of the port's runtime, a process
+Each rank runs in a `TrainWorker` actor of the port's runtime, a process
 of its own that the raylet pins to the cards of its lease
-(CUDA_VISIBLE_DEVICES); the driver holds no rank, and weights, results
-and metrics cross the object store. Call `ray_tpu_torch.init()` first.
+(CUDA_VISIBLE_DEVICES), so the rank computes on cuda:0 of its own view;
+the driver holds no rank, and weights, results and metrics cross the
+object store. Call `ray_tpu_torch.init()` first.
 
 One rank is one actor with {"GPU": 1} ({"CPU": 1} for device="cpu"),
-exactly the reference's TrainWorker. N > 1 ranks are the ranks of one
-collective group, whose ring kernels need every rank in one address
-space until the collective tier crosses processes (ROADMAP.md A5), so
-one TrainWorker hosts all of them, as the reference runs one actor per
-host with the device collectives inside it: it takes {"GPU": g} for the
-g distinct cards its ranks use, rank r sits on cuda:(r % g), each on its
-own CUDA stream, and `train_epoch` steps the ranks in lockstep (step k's
-collective of every rank is launched before any rank goes on past its
-own; operator.lockstep). The surface is the JAX one: `train`,
-`validate`, `state_dict`, `load_state_dict`, `shutdown`, and `_reduce`
-over the ranks' results.
+exactly the reference's TrainWorker; where the ranks outnumber the node's
+cards, k ranks share a card, each with {"GPU": 1/k}. N > 1 ranks are the
+ranks of one collective group (backend "host", one rank a process),
+created over the workers with `create_collective_group`, as the
+reference's `_start_workers` does (trainer.py:293-331). Its data plane is
+chosen per op: the fused ring kernels across processes on the card, the
+host tiers on the CPU. The surface is the JAX one: `train`, `validate`,
+`state_dict`, `load_state_dict`, `shutdown`, and `_reduce` over the
+ranks' results.
 """
 
 from __future__ import annotations
 
 import importlib
 import itertools
+import math
 import os
 import pickle
 import time
@@ -33,8 +33,7 @@ import cloudpickle
 import ray_tpu_torch
 from ray_tpu_torch._private.device import check_device, resolve_device
 from ray_tpu_torch.collective import collective as col
-from ray_tpu_torch.collective.types import normalize_quantize
-from ray_tpu_torch.train.operator import lockstep
+from ray_tpu_torch.collective.types import Transport, normalize_quantize
 
 _GROUP_IDS = itertools.count()
 
@@ -60,91 +59,82 @@ KERNEL_COUNTERS = {
         "QUANTIZED_LAUNCHES"),
     "collective.quantized_bytes_saved_total": (
         "ray_tpu_torch.collective.metrics", "QUANT_SAVED"),
+    **{f"collective.{tier}_ops_total": (
+        "ray_tpu_torch.collective.metrics", f"{tier.upper()}_OPS")
+       for tier in ("hub", "ring", "shm", "device", "pallas")},
 }
 
 
-class TrainWorker:
-    """Actor hosting the ranks of one node, one TrainingOperator each
-    (reference: distributed_torch_runner.py DistributedTorchRunner)."""
+class TrainWorker(col.CollectiveActorMixin):
+    """Actor hosting one rank's TrainingOperator (reference:
+    distributed_torch_runner.py DistributedTorchRunner)."""
 
     def __init__(self, operator_cls_pickled: bytes, config: dict,
-                 world_size: int, device: str | None, num_cpus: float,
-                 group: dict | None):
+                 world_rank: int, world_size: int, group_name: str | None,
+                 device: str | None, num_cpus: float):
         self._operator_cls = pickle.loads(operator_cls_pickled)
         self._config = config
+        self._rank = world_rank
         self._world_size = world_size
+        self._group_name = group_name
         self._device = device
         self._num_cpus = num_cpus
-        self._group = group
-        self.operators: list = []
+        self.operator = None
 
     def setup_operator(self) -> int:
-        """Builds the ranks (and their collective group); returns the
-        worker's pid, which Trainer.shutdown waits on. A CPU worker
+        """Builds the rank (after the group, when there is one); returns
+        the worker's pid, which Trainer.shutdown waits on. A CPU worker
         computes on the CPUs it leased: torch's threads are that many, so
         its float sums keep one order whatever else runs on the host."""
         if self._device == "cpu":
             import torch
 
             torch.set_num_threads(max(1, int(self._num_cpus)))
-        if self._group is None:
-            self.operators = [self._operator_cls(
-                self._config, 0, 1, device=resolve_device(self._device))]
-            return os.getpid()
-        devices = col.rank_devices(self._world_size, self._device)
-        name = self._group["group_name"]
-        for r, dev in enumerate(devices):
-            col.init_collective_group(
-                self._world_size, r, "host", name, self._group["timeout"],
-                self._group["transport"], self._group["quantize"],
-                device=dev)
-        self.operators = [
-            self._operator_cls(self._config, r, self._world_size,
-                               device=dev, group_name=name)
-            for r, dev in enumerate(devices)]
+        self.operator = self._operator_cls(
+            self._config, self._rank, self._world_size,
+            device=resolve_device(self._device),
+            group_name=self._group_name)
         return os.getpid()
 
-    def train_epoch(self, num_steps=None, profile_dir=None) -> list[dict]:
-        """One epoch of every rank, in lockstep; each rank's result. With
-        profile_dir, a torch.profiler chrome trace of the epoch goes to
-        profile_dir/train_epoch_<epoch>.json."""
-        stages = [op.train_epoch_stages(num_steps) for op in self.operators]
+    def train_epoch(self, num_steps=None, profile_dir=None) -> dict:
+        """One epoch of the rank; its result. With profile_dir, a
+        torch.profiler chrome trace of the epoch goes to
+        profile_dir/train_epoch_<epoch>_rank<r>.json."""
         if not profile_dir:
-            return lockstep(stages)
+            return self.operator.train_epoch(num_steps)
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]
-        if self.operators[0].device.type == "cuda":
+        if self.operator.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         with profile(activities=activities) as prof:
-            results = lockstep(stages)
+            result = self.operator.train_epoch(num_steps)
         os.makedirs(profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(
-            profile_dir, f"train_epoch_{self.operators[0].epoch}.json"))
-        return results
+            profile_dir,
+            f"train_epoch_{self.operator.epoch}_rank{self._rank}.json"))
+        return result
 
-    def validate(self, num_steps=None) -> list[dict]:
-        return [op.validate(num_steps) for op in self.operators]
+    def validate(self, num_steps=None) -> dict:
+        return self.operator.validate(num_steps)
 
     def state_dict(self):
-        return self.operators[0].state_dict()
+        return self.operator.state_dict()
 
     def load_state_dict(self, state):
-        for op in self.operators:
-            op.load_state_dict(state)
+        self.operator.load_state_dict(state)
         return True
 
-    def opt_shard_state(self) -> list[dict]:
-        return [op.opt_shard_state() for op in self.operators]
+    def opt_shard_state(self) -> dict:
+        return self.operator.opt_shard_state()
 
-    def load_opt_shard(self, shards: list[dict]):
-        for op, shard in zip(self.operators, shards):
-            op.load_opt_shard(shard)
+    def load_opt_shard(self, shard: dict):
+        self.operator.load_opt_shard(shard)
         return True
 
     def read_counter(self, name: str) -> float:
-        """A counter of this worker's process: a kernel's launches
-        (KERNEL_COUNTERS, summed over the ranks it hosts) or a runtime
+        """A counter of this worker's process: a kernel's launches or a
+        collective tier's ops (KERNEL_COUNTERS, the rank's), or a runtime
         metric."""
         if name in KERNEL_COUNTERS:
             module, attr = KERNEL_COUNTERS[name]
@@ -170,17 +160,19 @@ class TrainWorker:
         return int(ru if sys.platform == "darwin" else ru * 1024)
 
     def run(self, fn):
-        """fn(operators), the ranks' TrainingOperators in rank order, run
-        in this worker's process: for checks and tools that must see a
-        rank's model or its process state (device memory, counters)."""
-        return fn(self.operators)
+        """fn([operator]), this worker's rank's TrainingOperator in a
+        list, run in this worker's process: for checks and tools that
+        must see a rank's model or its process state (device memory,
+        counters)."""
+        return fn([self.operator])
 
     def shutdown(self):
-        """Waits for the ranks' work, frees the group, and ends the
-        process (its card memory goes with it)."""
-        if self._group is not None:
-            col.destroy_collective_group(self._group["group_name"])
-        self.operators = []
+        """Frees the group and ends the process (its card memory goes
+        with it)."""
+        if self._group_name is not None and col.is_group_initialized(
+                self._group_name):
+            col.destroy_collective_group(self._group_name)
+        self.operator = None
         ray_tpu_torch.exit_actor()
 
 
@@ -191,14 +183,16 @@ class Trainer:
     for by name. resources_per_worker names what one rank holds; a CUDA
     rank needs {"GPU": 1}, and no more GPUs than the cluster has.
 
-    num_workers > 1: the ranks of one collective group over
-    `collective_transport` ("auto" and "pallas": the fused ring kernels;
-    the other tiers are not ported and raise), with `collective_timeout`
+    num_workers > 1: one TrainWorker actor a rank, the ranks of one
+    collective group over `collective_transport` ("auto" routes each op by
+    the group's vote: the fused ring kernels for CUDA gradients, the host
+    tiers on the CPU; a named tier is forced), with `collective_timeout`
     seconds for a rank to wait on a peer. quantize="int8" makes the
-    gradient wire block-scaled int8 (EQuARX-style, lossy). sharded=True
-    turns on the ZeRO weight-update schedule (arXiv:2004.13336):
-    reducescatter(grads), the optimizer on the rank's 1/N flat span,
-    allgather(params). mesh_mode (FSDP) is a later slice."""
+    gradient wire block-scaled int8 (EQuARX-style, lossy) on the tiers
+    that have a wire. sharded=True turns on the ZeRO weight-update
+    schedule (arXiv:2004.13336): reducescatter(grads), the optimizer on
+    the rank's 1/N flat span, allgather(params). mesh_mode (FSDP) is a
+    later slice."""
 
     def __init__(self, training_operator_cls, *, num_workers: int = 1,
                  config: dict | None = None,
@@ -224,12 +218,12 @@ class Trainer:
                 f"mesh_mode={mesh_mode!r}: the FSDP mesh is a later slice "
                 "(ROADMAP.md queue A item 5)")
         quantize = normalize_quantize(quantize)
-        col.resolve_transport(collective_transport)
+        Transport(collective_transport)  # validates the name
         on_cuda = check_device(device).type == "cuda"
         resources = dict(resources_per_worker or (
             {"GPU": 1} if on_cuda else {"CPU": 1}))
         gpus = resources.get("GPU", 0)
-        if on_cuda and gpus < 1:
+        if on_cuda and gpus <= 0:
             raise ValueError(
                 "a worker on CUDA needs resources_per_worker {'GPU': 1}")
         nodes = ray_tpu_torch.nodes()
@@ -239,32 +233,35 @@ class Trainer:
             raise ValueError(
                 f"resources_per_worker asks for {gpus} GPU(s); no node of "
                 f"the cluster has more than {node_gpus}")
-        if gpus and num_workers * gpus > node_gpus and len(nodes) > 1:
-            raise NotImplementedError(
-                f"{num_workers} ranks of {gpus} GPU(s) need more than one "
-                "node; ranks across nodes are ROADMAP.md A5")
-        if gpus and num_workers > 1:
-            # the distinct cards the ranks use: rank r on cuda:(r % g)
-            resources["GPU"] = min(num_workers * gpus, node_gpus)
+        if gpus and num_workers * gpus > node_gpus:
+            if len(nodes) > 1:
+                raise NotImplementedError(
+                    f"{num_workers} ranks of {gpus} GPU(s) need more than "
+                    "one node; ranks across nodes are ROADMAP.md A4 item 5")
+            # more ranks than cards on the node: k ranks share a card
+            resources["GPU"] = 1 / math.ceil(num_workers * gpus / node_gpus)
         self._num_workers = num_workers
         self._last_state: dict | None = None
         self._last_shards: list | None = None
-        group = None
-        if num_workers > 1:
-            group = {"group_name": f"trainer_{next(_GROUP_IDS)}",
-                     "timeout": collective_timeout,
-                     "transport": collective_transport,
-                     "quantize": quantize}
+        group_name = (f"trainer_{os.getpid()}_{next(_GROUP_IDS)}"
+                      if num_workers > 1 else None)
         # cloudpickle: operator classes defined in __main__ serialize by
         # value (stdlib pickle would import them by reference and fail on
         # the worker)
+        pickled = cloudpickle.dumps(training_operator_cls)
         worker_cls = ray_tpu_torch.remote(resources=resources)(TrainWorker)
         self.workers = [worker_cls.remote(
-            cloudpickle.dumps(training_operator_cls), self._config,
-            num_workers, None if on_cuda else "cpu",
-            resources.get("CPU", 1), group)]
+            pickled, self._config, rank, num_workers, group_name,
+            None if on_cuda else "cpu", resources.get("CPU", 1))
+            for rank in range(num_workers)]
         self._pids: list[int] = []
         try:
+            if group_name is not None:
+                col.create_collective_group(
+                    self.workers, num_workers, list(range(num_workers)),
+                    backend="host", group_name=group_name,
+                    timeout=collective_timeout, quantize=quantize,
+                    transport=collective_transport)
             self._pids = ray_tpu_torch.get(
                 [w.setup_operator.remote() for w in self.workers],
                 timeout=setup_timeout)
@@ -282,9 +279,9 @@ class Trainer:
         self._last_state = self.state_dict()
         if self._sharded:
             self._last_state.pop("opt_shard", None)
-            self._last_shards = [s for w in ray_tpu_torch.get(
+            self._last_shards = ray_tpu_torch.get(
                 [w.opt_shard_state.remote() for w in self.workers],
-                timeout=120) for s in w]
+                timeout=120)
         return _reduce(results) if reduce_results else results
 
     def validate(self, num_steps: int | None = None,
@@ -294,9 +291,9 @@ class Trainer:
 
     def _gather(self, method: str, *args, **kw) -> list[dict]:
         """Every rank's result of a worker method, in rank order."""
-        return [r for rs in ray_tpu_torch.get(
+        return ray_tpu_torch.get(
             [getattr(w, method).remote(*args, **kw) for w in self.workers],
-            timeout=600) for r in rs]
+            timeout=600)
 
     def state_dict(self) -> dict:
         return ray_tpu_torch.get(self.workers[0].state_dict.remote(),

@@ -9,8 +9,10 @@ JAX DeviceTransport lifts it (zero-padded to `_bucket(n)`, or to
 `_pallas_call` names `pltpu.TPUMemorySpace.ANY`, which was renamed
 `MemorySpace`; the module fixture aliases it for the JAX calls, through
 a MonkeyPatch, and changes nothing in the JAX package. Every JAX result
-is computed once, in that fixture. The port runs each case through
-`init_collective_group(..., device="cpu")`, one handle per rank.
+is computed once, in that fixture. The port runs each case through its
+in-process group of every rank, `init_collective_group(...,
+backend="xla", device="cpu")`, one handle per rank (the per-process
+HOST groups are tests/test_torch_collective_procs.py's).
 
 Tolerances:
 - exact allreduce, reduce-scatter and allgather: bit-exact, for every
@@ -130,8 +132,9 @@ def jax_results():
 @contextlib.contextmanager
 def _group(w, **kwargs):
     name = f"test_{w}_{id(kwargs)}"
-    handles = [col.init_collective_group(w, r, group_name=name,
-                                         device="cpu", **kwargs)
+    handles = [col.init_collective_group(w, r, backend="xla",
+                                         group_name=name, device="cpu",
+                                         **kwargs)
                for r in range(w)]
     try:
         yield handles
@@ -300,15 +303,20 @@ def test_reducescatter_uneven_slices_an_allreduce():
 def test_group_lifecycle():
     name = "lifecycle"
     assert not col.is_group_initialized(name)
-    h0 = col.init_collective_group(2, 0, group_name=name, device="cpu")
+    h0 = col.init_collective_group(2, 0, backend="xla", group_name=name,
+                                   device="cpu")
     assert col.is_group_initialized(name)
     assert col.get_collective_group_size(name) == 2
     assert col.get_rank(name) == 0
-    h1 = col.init_collective_group(2, 1, group_name=name, device="cpu")
+    h1 = col.init_collective_group(2, 1, backend="xla", group_name=name,
+                                   device="cpu")
     with pytest.raises(ValueError, match="holds ranks"):
         col.get_rank(name)
     with pytest.raises(RuntimeError, match="already joined"):
-        col.init_collective_group(2, 1, group_name=name, device="cpu")
+        col.init_collective_group(2, 1, backend="xla", group_name=name,
+                                  device="cpu")
+    with pytest.raises(ValueError, match="rank="):
+        col.allreduce(torch.ones(3), name)
     a = col.allreduce(torch.ones(3), name, rank=0)
     b = col.allreduce(torch.ones(3) * 2, name, rank=1)
     col.barrier(name, rank=0)
@@ -322,21 +330,34 @@ def test_group_lifecycle():
 
 
 @pytest.mark.parametrize("transport,err,match", [
-    ("device", NotImplementedError, "A5"),
-    ("ring", NotImplementedError, "A5"),
-    ("shm", NotImplementedError, "A5"),
+    ("device", ValueError, "backend 'host'"),
+    ("ring", ValueError, "backend 'host'"),
+    ("shm", ValueError, "backend 'host'"),
     ("bogus", ValueError, "bogus")])
 def test_unported_transports_raise(transport, err, match):
+    """The host and NCCL tiers carry ranks in processes of their own
+    (backend "host"); the in-process group refuses them, and a name that
+    is no tier."""
     with pytest.raises(err, match=match):
-        col.init_collective_group(2, 0, group_name=f"t_{transport}",
+        col.init_collective_group(2, 0, backend="xla",
+                                  group_name=f"t_{transport}",
                                   device="cpu", transport=transport)
     assert not col.is_group_initialized(f"t_{transport}")
 
 
 def test_broadcast_raises():
-    with _group(2) as hs:
+    """broadcast is the reference's masked allreduce (the source's payload
+    and every other rank's zeros), bit for bit the source's; a source
+    outside the group raises; shift_right is not ported and raises."""
+    x = torch.randn(5, generator=torch.Generator().manual_seed(0))
+    with _group(3) as hs:
+        outs = [h.broadcast(x * (r + 1), src_rank=1)
+                for r, h in enumerate(hs)]
+        assert all(torch.equal(o, x * 2) for o in outs)
+        with pytest.raises(ValueError, match="src_rank 3"):
+            hs[0].broadcast(x, src_rank=3)
         with pytest.raises(NotImplementedError, match="A5"):
-            hs[0].broadcast(torch.ones(2))
+            hs[0].group.transport.shift_right(0, x)
 
 
 def test_withheld_rank_times_out_and_next_group_works():

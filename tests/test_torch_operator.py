@@ -272,15 +272,18 @@ def test_trainer_without_cuda_raises_instead_of_using_cpu(monkeypatch):
         Trainer(PortOp, config={})
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"num_workers": 2, "collective_transport": "device"},
-    {"num_workers": 2, "collective_transport": "ring"},
-    {"mesh_mode": "fsdp"}])
-def test_trainer_unported_options_raise(kwargs):
+@pytest.mark.parametrize("kwargs,err,match", [
+    ({"num_workers": 2, "collective_transport": "nccl"}, ValueError, "nccl"),
+    ({"num_workers": 2, "collective_transport": "bogus"}, ValueError,
+     "bogus"),
+    ({"mesh_mode": "fsdp"}, NotImplementedError, "ROADMAP")])
+def test_trainer_unported_options_raise(kwargs, err, match):
     """Options of the JAX Trainer that the port does not carry yet raise,
-    naming the ROADMAP item (the device tier, the runtime's host tiers,
-    the FSDP mesh); num_workers > 1 and sharded=True are ported."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    naming the ROADMAP item (the FSDP mesh), and a collective transport
+    that is no tier of the reference raises before any worker starts.
+    Every tier of the reference is carried (num_workers > 1 and
+    sharded=True too): tests/test_torch_collective_procs.py."""
+    with pytest.raises(err, match=match):
         Trainer(PortOp, config={}, device="cpu", **kwargs)
 
 

@@ -1,8 +1,10 @@
 """Port check: data-parallel and ZeRO training through the port's
-`Trainer(num_workers=2)` on the CPU, held against the JAX package. The
-ranks run in the trainer's TrainWorker actor, in a module-scoped
-`ray_tpu_torch.init` cluster; what a check reads of a rank (its weights,
-gradients, steps, counters) comes from the worker's process.
+`Trainer(num_workers=2)` on the CPU, held against the JAX package. Each
+rank runs in a TrainWorker actor of its own (a process a rank), in a
+module-scoped `ray_tpu_torch.init` cluster, and the ranks' collectives
+cross processes (the HOST group's shm tier; the int8 trainer's DEVICE
+tier over gloo); what a check reads of a rank (its weights, gradients,
+steps, counters) comes from that rank's process.
 
 A small GPT (2 layers, 4 heads, d 64, vocab 256, T 64, f32) on
 `device="cpu"`, where the ring collectives take their plain versions.
@@ -19,11 +21,14 @@ Tolerances:
   the mean over 4 sequences taken as a mean of two means).
 - sharded=True against replicated at w = 2, AdamW, 3 steps: bit-identical
   parameters and losses (two-term sums commute, AdamW is elementwise).
-- quantize="int8": the saved-bytes counter grows by `_qring_saved_bytes`
-  per rank and step, exactly.
+- quantize="int8" (forced onto the DEVICE tier, whose int8 ring is the
+  quantized wire on the CPU at w = 2): the saved-bytes counter grows by
+  `_qring_saved_bytes` per rank and step, exactly, and the ranks stay
+  bit-identical.
 """
 
 import dataclasses
+import os
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
@@ -53,6 +58,8 @@ JCFG = dataclasses.replace(jtr.TINY, dtype=jnp.float32, max_seq=T)
 TCFG = dataclasses.replace(ttr.TINY, dtype=torch.float32, max_seq=T,
                            remat=False)
 GRAD_TOL = 1e-4
+# the mismatched trainer's collective timeout: rendezvous and each op
+MISMATCH_TIMEOUT_S = 5.0
 LEAVES = (["wte", "wpe", "lnf_w", "lnf_b"]
           + [f"blocks.{k}" for k in ttr._BLOCK_KEYS])
 
@@ -117,8 +124,17 @@ def _named_params(ops):
 
 
 def _on_worker(trainer, fn):
-    """fn(operators) run in the trainer's worker process."""
-    return ray_tpu_torch.get(trainer.workers[0].run.remote(fn))
+    """fn(operators) run in every rank's worker process, whose operators
+    are its rank's alone; the lists it returns, concatenated in rank
+    order."""
+    return [r for rs in ray_tpu_torch.get(
+        [w.run.remote(fn) for w in trainer.workers]) for r in rs]
+
+
+def _on_rank(trainer, rank, fn):
+    """fn(operator) run in rank `rank`'s worker process."""
+    return ray_tpu_torch.get(trainer.workers[rank].run.remote(
+        lambda ops: fn(ops[0])))
 
 
 def _raised_in_worker(cls, match):
@@ -130,9 +146,9 @@ def _raised_in_worker(cls, match):
 
 @pytest.fixture(scope="module")
 def cluster():
-    # a CPU a trainer's worker: room for every trainer this file holds at
-    # once (`built`'s eight and a restore test's two)
-    with port_cluster(num_cpus=10):
+    # a CPU a rank's worker: room for every worker this file holds at once
+    # (`built`'s fourteen and a restore test's four)
+    with port_cluster(num_cpus=18):
         yield
 
 
@@ -186,7 +202,7 @@ def _mismatched(data):
     """Rank 1 has one batch where rank 0 has three."""
     params, tokens = data
     return Trainer(DPOp, num_workers=W, device="cpu",
-                   collective_timeout=0.01, config={
+                   collective_timeout=MISMATCH_TIMEOUT_S, config={
                        "params": params,
                        "batches": [list(tokens[0]), list(tokens[1][:1])]})
 
@@ -203,7 +219,8 @@ def built(data):
         "adamw": lambda: _trainer(data, epochs=2, opt="adamw"),
         "adamw_sharded": lambda: _trainer(data, epochs=2, opt="adamw",
                                           sharded=True),
-        "int8": lambda: _trainer(data, quantize="int8"),
+        "int8": lambda: _trainer(data, quantize="int8",
+                                 collective_transport="device"),
         "mismatched": lambda: _mismatched(data),
         "single": lambda: _single(data, False),
         "single_sharded": lambda: _single(data, True)}
@@ -229,7 +246,8 @@ def sgd_runs(built):
                    for _ in range(STEPS - 1)]
         return {"replicated": (losses, _on_worker(replicated,
                                                    _named_params)),
-                "sharded": _steps(sharded), "grads": grads}
+                "sharded": _steps(sharded), "grads": grads,
+                "pids": {t: list(t._pids) for t in (replicated, sharded)}}
     finally:
         replicated.shutdown()
         sharded.shutdown()
@@ -246,7 +264,7 @@ def adamw_runs(built):
 
 @pytest.fixture(scope="module")
 def replicated(sgd_runs):
-    return sgd_runs["replicated"]
+    return sgd_runs["replicated"], sgd_runs["pids"]
 
 
 @pytest.fixture(scope="module")
@@ -283,7 +301,11 @@ def one_dp_step(sgd_runs):
 
 
 def test_ranks_stay_bit_identical(replicated):
-    losses, (m0, m1) = replicated
+    """Each rank in a worker process of its own, and the driver in none."""
+    (losses, (m0, m1)), pids = replicated
+    for trainer_pids in pids.values():
+        assert len(set(trainer_pids)) == W
+        assert os.getpid() not in trainer_pids
     assert len(losses) == STEPS and all(np.isfinite(losses))
     assert m0.keys() == m1.keys()
     for n in m0:
@@ -323,15 +345,26 @@ def test_sharded_single_worker_matches_replicated(built):
     assert torch.equal(out[0], out[1])
 
 
+def _counter(trainer, name):
+    """A counter summed over the ranks' workers (read_counter: each
+    rank's process counts its own)."""
+    return sum(ray_tpu_torch.get([w.read_counter.remote(name)
+                                  for w in trainer.workers]))
+
+
 def test_int8_counts_saved_bytes(built):
-    """The counter is the worker's: read through read_counter."""
+    """The counters are the workers': read through read_counter. Every
+    op of the two steps went over the DEVICE tier."""
     numel = ttr.num_params(ttr.GPT(TCFG))
     trainer = built["int8"]
     name = "collective.quantized_bytes_saved_total"
-    before = ray_tpu_torch.get(trainer.workers[0].read_counter.remote(name))
+    before = _counter(trainer, name)
+    device_before = _counter(trainer, "collective.device_ops_total")
     losses = [trainer.train(num_steps=1)["last_train_loss"]
               for _ in range(2)]
-    after = ray_tpu_torch.get(trainer.workers[0].read_counter.remote(name))
+    after = _counter(trainer, name)
+    assert (_counter(trainer, "collective.device_ops_total")
+            - device_before) == 2 * W
     m0, m1 = _on_worker(trainer, _named_params)
     per_call = db._qring_saved_bytes(db._qring_pad(numel, W), W,
                                      torch.float32, "sum")
@@ -368,7 +401,10 @@ def test_opt_nbytes_matches_reference():
 
 
 def test_trainer_rejects_mismatched_step_counts(built):
-    with _raised_in_worker(RuntimeError, "same number of steps"):
+    """Rank 0's second step waits for rank 1, which has no second batch:
+    its collective times out naming rank 1 (ranks in processes of their
+    own cannot know a peer's step count otherwise)."""
+    with _raised_in_worker(TimeoutError, r"\[1\]"):
         built["mismatched"].train(num_steps=2)
 
 
@@ -481,17 +517,17 @@ def test_opt_shard_round_trip_and_geometry_mismatch(adamw_runs):
     hold two epochs)."""
     trainer = adamw_runs["trainers"][True]
     trainer.train(num_steps=1)
-    shard = _on_worker(trainer, lambda ops: ops[0].opt_shard_state())
+    shard = _on_rank(trainer, 0, lambda op: op.opt_shard_state())
     with _raised_in_worker(ValueError, "does not match rank 1"):
-        _on_worker(trainer, lambda ops: ops[1].load_opt_shard(shard))
+        _on_rank(trainer, 1, lambda op: op.load_opt_shard(shard))
     with _raised_in_worker(ValueError, "does not match rank 0"):
-        _on_worker(trainer, lambda ops: ops[0].load_opt_shard(
+        _on_rank(trainer, 0, lambda op: op.load_opt_shard(
             {**shard, "world_size": 3}))
     trainer.train(num_steps=1)  # moves rank 0's state on
 
-    def reload(ops):
-        ops[0].load_opt_shard(shard)
-        return ops[0].opt_shard_state()["leaves"]
+    def reload(op):
+        op.load_opt_shard(shard)
+        return op.opt_shard_state()["leaves"]
 
-    for a, b in zip(_on_worker(trainer, reload), shard["leaves"]):
+    for a, b in zip(_on_rank(trainer, 0, reload), shard["leaves"]):
         assert torch.equal(a, b)
