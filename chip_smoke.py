@@ -91,6 +91,20 @@ JSON line:
    in distinct processes, sharded bit-identical to exact, int8 within a
    band of exact with its saved bytes counted, and a float32 DP step
    against a single-worker step at the combined batch.
+11. train_gpt2_elastic: the Trainer's fault tolerance on GPT-2 124M,
+   sharded over the same ranks, every rank the same tokens, 6 steps an
+   epoch: an uninterrupted control of 4 epochs in one generation,
+   gang-reserved (ICI_RING, placed as PACK); an elastic run (epoch 1,
+   save, epoch 2 with rank 1's process SIGKILLed by a driver timer
+   halfway through, so train() re-gangs at full size, epoch 3, a resize
+   to one rank, epoch 4); a fresh one-rank trainer that loads the epoch-1
+   checkpoint and trains 3 epochs. Both equal the control bit for bit
+   (losses by ==, a digest of every rank's parameters); B6 and B7 launch
+   in every generation's ranks (none at one rank) and never in the
+   driver; the reservation is CREATED and gone after shutdown; no
+   segment of the dead generation is left. It prints the re-gang's
+   seconds (the death to the next generation restored), sync_state's,
+   save's and load's, and the checkpoint's bytes.
 Then the card's name and power limit, the kernels summary line and, last,
 {"ok": true, "device": {...}}. `--only collectives_procs,train_gpt2_dp`
 runs the device and build phases and then only the named ones, the
@@ -1607,9 +1621,16 @@ def _rank_actor_cls():
             row["copy_ms"] = time_ms(lambda: x.clone(), iters=10)
             return row
 
-        def nccl(self, group, length, w, seed):
+        def nccl(self, group, length, w, seed, rs_length, ag_length):
             """The DEVICE tier's f32 sum at `length` (NCCL: a card a
-            rank), its result's digest against nothing and its ms."""
+            rank), its result and its ms; then NCCL's own
+            reduce_scatter_tensor at `rs_length` and
+            all_gather_into_tensor at `ag_length` (the process group's
+            _reduce_scatter_base and _allgather_base, which those calls
+            run), B6's and B7's yardsticks, each input made from
+            seed + 1 and seed + 2 as the driver makes it: the
+            reduce-scatter's result, the allgather's digest, the ms of
+            each."""
             from ray_tpu_torch import collective as col
 
             dev = torch.device("cuda", 0)
@@ -1618,19 +1639,43 @@ def _rank_actor_cls():
             x = _ring_inputs("add", torch.float32, length, w, dev, gen)[
                 g.rank]
             out = g.allreduce(x)
-            col.barrier(group)
-            torch.cuda.synchronize()
-            t0, t1 = (torch.cuda.Event(enable_timing=True)
-                      for _ in range(2))
-            t0.record()
-            for _ in range(PROC_ITERS):
-                g._device.allreduce(x)
-            t1.record()
-            torch.cuda.synchronize()
+            pg = g._device._ops.pg
+
+            def timed(fn):
+                col.barrier(group)
+                torch.cuda.synchronize()
+                t0, t1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                t0.record()
+                for _ in range(PROC_ITERS):
+                    fn()
+                t1.record()
+                torch.cuda.synchronize()
+                return t0.elapsed_time(t1) / PROC_ITERS
+
+            row = {"out": out.cpu(), "ms": timed(lambda: g._device.allreduce(
+                x))}
+            del x, out
+            gen = torch.Generator(device=dev).manual_seed(seed + 1)
+            x = _ring_inputs("add", torch.float32, rs_length, w, dev, gen)[
+                g.rank]
+            out = x.new_empty(rs_length // w)
+            pg._reduce_scatter_base(out, x).wait()
+            row["rs_out"] = out.cpu()
+            row["rs_ms"] = timed(
+                lambda: pg._reduce_scatter_base(out, x).wait())
+            del x, out
+            gen = torch.Generator(device=dev).manual_seed(seed + 2)
+            x = _ring_inputs("add", torch.float32, ag_length, w, dev, gen)[
+                g.rank]
+            out = x.new_empty((w, ag_length))
+            pg._allgather_base(out, x).wait()
+            row["ag_digest"] = _digest(out)
+            row["ag_ms"] = timed(lambda: pg._allgather_base(out, x).wait())
             from ray_tpu_torch.collective import metrics
 
-            return {"out": out.cpu(), "ms": t0.elapsed_time(t1) / PROC_ITERS,
-                    "device_ops": metrics.DEVICE_OPS}
+            row["device_ops"] = metrics.DEVICE_OPS
+            return row
 
         def tiers(self, group):
             """Which device tiers the group may vote for, and what a forced
@@ -1799,19 +1844,39 @@ def phase_collectives_procs(dev):
             dname = f"nccl{w}"
             _proc_group(actors, dname, transport="device",
                         timeout=RING_TIMEOUT_S * 30)
-            length = w * -(-_bucket_of(GPT2_NUMEL) // w)
-            res = ray_tpu_torch.get([a.nccl.remote(dname, length, w, 7)
-                                     for a in actors], timeout=600)
+            # the lengths of B5's, B6's and B7's cases at GPT-2's bucket
+            length, rs_length, ag_length = (
+                next(c[3] for c in _proc_cases(w)
+                     if c[0] == kind and c[4] == GPT2_NUMEL)
+                for kind in ("allreduce", "reducescatter", "allgather"))
+            res = ray_tpu_torch.get([a.nccl.remote(
+                dname, length, w, 7, rs_length, ag_length)
+                for a in actors], timeout=600)
             ray_tpu_torch.get([a.destroy.remote(dname) for a in actors])
             gen = torch.Generator(device=dev).manual_seed(7)
             xs = _ring_inputs("add", torch.float32, length, w, dev, gen)
             want = pb.allreduce_plain(xs, "sum")[0]
             err = max(_rel_l2(r["out"].to(dev), want) for r in res)
+            gen = torch.Generator(device=dev).manual_seed(8)
+            xs = _ring_inputs("add", torch.float32, rs_length, w, dev, gen)
+            want = pb.reducescatter_plain(xs)
+            rs_err = max(_rel_l2(r["rs_out"].to(dev), want[i])
+                         for i, r in enumerate(res))
+            gen = torch.Generator(device=dev).manual_seed(9)
+            xs = _ring_inputs("add", torch.float32, ag_length, w, dev, gen)
+            ag_exact = all(r["ag_digest"] == _digest(t) for r, t in
+                           zip(res, pb.allgather_plain(xs)))
             del xs, want
             nccl = {"ms": max(r["ms"] for r in res), "rel_l2": err,
                     "tol": NCCL_TOL,
+                    "reduce_scatter_tensor_ms": max(r["rs_ms"] for r in res),
+                    "reduce_scatter_rel_l2": rs_err,
+                    "all_gather_into_tensor_ms": max(r["ag_ms"]
+                                                     for r in res),
+                    "all_gather_bit_identical": ag_exact,
+                    "lengths": [length, rs_length, ag_length],
                     "device_ops": [r["device_ops"] for r in res]}
-            if err > NCCL_TOL:
+            if max(err, rs_err) > NCCL_TOL or not ag_exact:
                 raise RuntimeError(f"NCCL tier: {nccl}")
         else:
             fname = f"forced_device{w}"
@@ -1907,10 +1972,12 @@ def gpt2_dp_operator_cls():
                 to_tree=lambda m: (transformer.params_to_jax(m), None),
                 from_tree=lambda m, params, _: transformer.load_jax_params(
                     m, params))
-            # each rank its own tokens, from a seed of its rank
+            # each rank its own tokens, from a seed of its rank, unless
+            # the config names one seed for every rank
+            seed = config.get("token_seed", 10 + self.world_rank)
             self.register_data(train_loader=_Repeat(
-                _gpt_tokens(self.device, config["batch"], cfg,
-                            seed=10 + self.world_rank), config["steps"]))
+                _gpt_tokens(self.device, config["batch"], cfg, seed=seed),
+                config["steps"]))
 
     return Op
 
@@ -2146,6 +2213,221 @@ def phase_train_gpt2_dp(dev):
             | want_ring["int8"].keys() | want_ring["sharded"].keys()}
 
 
+# train_gpt2_elastic: steps an epoch, epochs of the control, and the
+# collective timeout of its trainers (how long a survivor waits for a
+# dead rank before its collective raises)
+ELASTIC_STEPS, ELASTIC_EPOCHS, ELASTIC_TIMEOUT_S = 6, 4, 10.0
+# where in the epoch the driver's timer kills rank 1: this share of the
+# control's steady epoch
+ELASTIC_KILL_AT = 0.5
+
+
+def _elastic_trainer(params, ranks):
+    """A sharded GPT-2 trainer of the elastic phase: every rank the same
+    tokens (seed 10), so the trajectory does not depend on the world
+    size."""
+    from ray_tpu_torch.train import Trainer
+
+    return Trainer(gpt2_dp_operator_cls(), num_workers=ranks, sharded=True,
+                   resources_per_worker={"GPU": 1},
+                   collective_timeout=ELASTIC_TIMEOUT_S, max_retries=2,
+                   config={"params": params, "batch": GPT_BATCH,
+                           "dtype": torch.bfloat16, "optimizer": _adamw,
+                           "steps": ELASTIC_STEPS, "tf32": True,
+                           "token_seed": 10})
+
+
+def _generation(trainer):
+    """The trainer's generation as it stands: its number, world size,
+    collective group, rank pids, whether its gang is reserved, and each
+    rank's B6 and B7 launches (read from the rank's own process)."""
+    import ray_tpu_torch
+
+    names = ("ring_reducescatter", "ring_allgather")
+    return {"generation": trainer._generation,
+            "world": trainer.num_workers, "group": trainer._group_name,
+            "pids": list(trainer._pids), "gang": trainer._pg is not None,
+            "b6_b7_by_rank": [[int(c) for c in ray_tpu_torch.get(
+                [w.read_counter.remote(n) for n in names])]
+                for w in trainer.workers]}
+
+
+def _digests(trainer):
+    import ray_tpu_torch
+
+    return ray_tpu_torch.get([w.run.remote(_param_digest)
+                              for w in trainer.workers])
+
+
+def phase_train_gpt2_elastic(dev, smi):
+    """GPT-2 124M, sharded over dp_workers() ranks, through the Trainer's
+    fault tolerance: an uninterrupted control of ELASTIC_EPOCHS epochs;
+    an elastic run (epoch 1, save, epoch 2 with rank 1's process
+    SIGKILLed by a timer partway through, so train() re-gangs, epoch 3,
+    a resize to one rank, epoch 4); and a fresh one-rank trainer that
+    loads the epoch-1 checkpoint and trains three epochs. Both must equal
+    the control bit for bit."""
+    import signal
+    import tempfile
+    import threading
+
+    import ray_tpu_torch
+    from ray_tpu_torch._private import global_state
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.native.store.segment import segment_dir
+    from ray_tpu_torch.train import sharding
+    from ray_tpu_torch.util import placement_group_table
+
+    cfg = gpt2_config()
+    model = transformer.GPT(cfg, seed=0)
+    params = transformer.params_to_jax(model)
+    del model
+    ranks = dp_workers()
+    cw = global_state.get_core_worker()
+
+    def fallbacks():
+        snap = cw._io.run(cw.gcs.call(
+            "get_metric", {"name": "gcs.placement_topology_fallbacks_total"}))
+        return snap["value"] if snap else 0.0
+
+    zero_counts()
+    reshards, fallbacks_before = sharding.RESHARDS, fallbacks()
+
+    # the control: ELASTIC_EPOCHS epochs, one generation
+    control = _elastic_trainer(params, ranks)
+    pg = control._pg
+    rec = placement_group_table()[pg.id.hex()] if pg is not None else {}
+    gang = {"reserved": pg is not None, "state": rec.get("state"),
+            "strategy": rec.get("strategy"),
+            "topology_plan": rec.get("topology_plan"),
+            "nodes": len({b["node_id"] for b in rec.get("bundles", [])}),
+            "bundles": [b["resources"] for b in rec.get("bundles", [])]}
+    control_losses, epoch_s = [], []
+    for _ in range(ELASTIC_EPOCHS):
+        r = control.train()
+        control_losses.append(r["train_loss"])
+        epoch_s.append(r["num_samples"] / r["samples_per_s"])
+    control_gen = _generation(control)
+    control_digests = _digests(control)
+    control.shutdown()
+    gang["after_shutdown"] = (pg is not None
+                              and pg.id.hex() in placement_group_table())
+    gang["topology_fallbacks"] = fallbacks() - fallbacks_before
+
+    with tempfile.TemporaryDirectory(dir=".") as ckpt_dir:
+        path = os.path.join(ckpt_dir, "ckpt")
+        tr = _elastic_trainer(params, ranks)
+        losses = [tr.train()["train_loss"]]
+        gens = [_generation(tr)]
+        t0 = time.perf_counter()
+        tr.save(path)
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = {f: os.path.getsize(os.path.join(ckpt_dir, f))
+                      for f in sorted(os.listdir(ckpt_dir))}
+        # epoch 2: a timer kills rank 1 partway through it
+        death = {}
+        kill_after = ELASTIC_KILL_AT * statistics.median(epoch_s[1:])
+
+        def kill():
+            death["at"] = time.monotonic()
+            os.kill(gens[0]["pids"][1], signal.SIGKILL)
+
+        timer = threading.Timer(kill_after, kill)
+        started = time.monotonic()
+        timer.start()
+        losses.append(tr.train()["train_loss"])
+        timer.join()
+        regangs = list(tr._regangs)
+        segs = (sorted(os.listdir(segment_dir()))
+                if os.path.isdir(segment_dir()) else [])
+        dead = [s for s in segs if gens[0]["group"] in s or any(
+            f"ring_events_{p}_" in s for p in gens[0]["pids"])]
+        losses.append(tr.train()["train_loss"])
+        gens.append(_generation(tr))
+        tr._num_workers = 1
+        tr._resize_worker_group()
+        losses.append(tr.train()["train_loss"])
+        gens.append(_generation(tr))
+        elastic_digests = _digests(tr)
+        tr.shutdown()
+
+        loaded = _elastic_trainer(params, 1)
+        t0 = time.perf_counter()
+        loaded.load(path)
+        load_s = time.perf_counter() - t0
+        loaded_losses = [loaded.train()["train_loss"]
+                         for _ in range(ELASTIC_EPOCHS - 1)]
+        loaded_gen = _generation(loaded)
+        loaded_digests = _digests(loaded)
+        loaded.shutdown()
+
+    driver = local_counts()
+    regang = regangs[0] if regangs else {}
+    fields = {
+        "nvidia_smi": smi, "ranks": ranks, "steps_per_epoch": ELASTIC_STEPS,
+        "tokens_per_rank_step": GPT_BATCH * cfg.max_seq,
+        "collective_timeout_s": ELASTIC_TIMEOUT_S,
+        "control_epoch_s": epoch_s, "control_losses": control_losses,
+        "control_generation": control_gen, "gang": gang,
+        "elastic_losses": losses, "elastic_generations": gens,
+        "loaded_losses": loaded_losses, "loaded_generation": loaded_gen,
+        "kill_into_epoch_s": death.get("at", started) - started,
+        "regangs": len(regangs),
+        "regang_world": regang.get("world_size"),
+        # the death to the driver's hearing of it, and to the next
+        # generation restored (the retried epoch's first step follows)
+        "death_to_failure_s": regang.get("failed_at", 0) - death.get("at", 0),
+        "regang_s": regang.get("restored_at", 0) - death.get("at", 0),
+        # of it: the old generation killed (its processes gone, its
+        # leases and gang returned), the new one started (processes,
+        # group, operators), its state restored (sync_state and the
+        # optimizer shards)
+        "kill_s": regang.get("started_at", 0) - regang.get("resize_at", 0),
+        "start_s": (regang.get("restored_at", 0)
+                    - regang.get("started_at", 0)
+                    - regang.get("restore_s", 0)),
+        "restore_s": regang.get("restore_s"),
+        "sync_state_s": regang.get("sync_state_s"),
+        "save_s": save_s, "load_s": load_s, "checkpoint_bytes": ckpt_bytes,
+        "reshards": sharding.RESHARDS - reshards,
+        "dead_generation_segments": dead, "segments_after_regang": segs,
+        "driver_counts": {k: v for k, v in driver.items() if v},
+        "elastic_equals_control": elastic_digests[0] == control_digests[0],
+        "loaded_equals_control": loaded_digests[0] == control_digests[0],
+        "ranks_bit_identical": len(set(control_digests + elastic_digests))
+        == 1}
+    emit("train_gpt2_elastic", **fields)
+    steps = ELASTIC_STEPS
+
+    def launched(gen, epochs):
+        want = [epochs * steps] * 2 if gen["world"] > 1 else [0, 0]
+        return all(c == want for c in gen["b6_b7_by_rank"])
+
+    ok = (control_gen["generation"] == 1
+          and launched(control_gen, ELASTIC_EPOCHS)
+          and [g["generation"] for g in gens] == [1, 2, 3]
+          and [g["world"] for g in gens] == [ranks, ranks, 1]
+          and launched(gens[0], 1) and launched(gens[1], 2)
+          and launched(gens[2], 1) and loaded_gen["generation"] == 1
+          and launched(loaded_gen, ELASTIC_EPOCHS - 1)
+          and all(g["gang"] for g in (control_gen, *gens[:2]))
+          and gang["state"] == "CREATED" and gang["strategy"] == "ICI_RING"
+          and gang["topology_plan"] is None and gang["nodes"] == 1
+          and gang["after_shutdown"] is False
+          and gang["topology_fallbacks"] >= 1
+          and len(regangs) == 1 and regang["world_size"] == ranks
+          and regang["sync_state_s"] is not None
+          and losses == control_losses
+          and loaded_losses == control_losses[1:]
+          and fields["elastic_equals_control"]
+          and fields["loaded_equals_control"]
+          and fields["ranks_bit_identical"]
+          and fields["reshards"] == 2 and not dead and not any(driver.values())
+          and all(math.isfinite(v) for v in control_losses))
+    if not ok:
+        raise RuntimeError(f"train_gpt2_elastic: {fields}")
+
+
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "bn_bwd_sums": ("ray_tpu_torch/ops/csrc/bn_bwd_sums.cu",
                     "ray_tpu/ops/batchnorm.py:43"),
@@ -2169,7 +2451,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
 
 # the phases that need the runtime (phase_runtime starts it)
 RUNTIME_PHASES = ("runtime", "collectives_procs", "train", "train_gpt2",
-                  "train_gpt2_dp")
+                  "train_gpt2_dp", "train_gpt2_elastic")
 
 
 def main():
@@ -2219,6 +2501,8 @@ def main():
             launches.update(phase_train_gpt2(dev))
         if run("train_gpt2_dp"):
             launches.update(phase_train_gpt2_dp(dev))
+        if run("train_gpt2_elastic"):
+            phase_train_gpt2_elastic(dev, smi)
     finally:
         ray_tpu_torch.shutdown()
     print(smi)

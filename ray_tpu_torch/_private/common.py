@@ -44,13 +44,15 @@ class ResourceSet:
     """Integer-quantized resource amounts keyed by name ("CPU", "GPU", ...).
 
     `gpu_ids` names the cards a raylet granted these amounts on (a
-    lease's CUDA_VISIBLE_DEVICES); it is local to the raylet and never
-    travels."""
+    lease's CUDA_VISIBLE_DEVICES), and `bundle` the placement-group
+    bundle (pg_id, bundle_index) they were granted from, None for the
+    node's own pool; both are local to the raylet and never travel."""
 
-    __slots__ = ("_amounts", "gpu_ids")
+    __slots__ = ("_amounts", "gpu_ids", "bundle")
 
     def __init__(self, amounts: dict[str, float] | None = None, _raw=None):
         self.gpu_ids: tuple[int, ...] | None = ()
+        self.bundle: tuple[bytes, int] | None = None
         if _raw is not None:
             self._amounts = dict(_raw)
         else:
@@ -127,6 +129,8 @@ def make_task_spec(
     resources: dict[str, float] | None = None,
     max_retries: int = 0,
     actor_creation: dict | None = None,
+    placement_group_id: bytes | None = None,
+    bundle_index: int = -1,
 ) -> dict[str, Any]:
     """TaskSpec as a msgpack-plain dict."""
     return {
@@ -145,6 +149,8 @@ def make_task_spec(
         "resources": ResourceSet(resources or {}).raw(),
         "max_retries": max_retries,
         "actor_creation": actor_creation,
+        "pg_id": placement_group_id,
+        "bundle_index": bundle_index,
     }
 
 
@@ -154,4 +160,6 @@ def scheduling_key(spec: dict) -> tuple:
     return (
         spec["fn_id"],
         tuple(sorted(spec["resources"].items())),
+        spec.get("pg_id"),
+        spec.get("bundle_index", -1),
     )

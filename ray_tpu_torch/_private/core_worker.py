@@ -208,6 +208,8 @@ class CoreWorker:
 
         # actors
         self.actor_clients: dict[bytes, _ActorClient] = {}
+        # placement-group waiters (io-loop-confined): pg_id -> futures
+        self._pg_waiters: dict[bytes, list] = {}
 
         # function registry
         self._fn_cache: dict[bytes, Any] = {}
@@ -903,7 +905,9 @@ class CoreWorker:
 
     def submit_task(self, *, fn_id: bytes = b"", name: str = "", args=(),
                     kwargs=None, num_returns=1, resources=None,
-                    max_retries=None, template: dict | None = None) -> list[ObjectRef]:
+                    max_retries=None, template: dict | None = None,
+                    placement_group: bytes | None = None,
+                    bundle_index: int = -1) -> list[ObjectRef]:
         task_id = TaskID.for_task(self.job_id)
         descs, pinned = self._serialize_args(args, kwargs)
         if template is not None:
@@ -924,6 +928,8 @@ class CoreWorker:
                 resources=resources or {"CPU": 1},
                 max_retries=(self.config.task_max_retries
                              if max_retries is None else max_retries),
+                placement_group_id=placement_group,
+                bundle_index=bundle_index,
             )
         refs = self._make_return_refs(task_id, num_returns)
         self.submitted[task_id.binary()] = {
@@ -1287,7 +1293,8 @@ class CoreWorker:
     def create_actor(self, *, cls_id: bytes, name: str, args, kwargs,
                      num_returns=0, resources=None, max_restarts=0,
                      max_concurrency=1, actor_name="",
-                     namespace="") -> bytes:
+                     namespace="", placement_group: bytes | None = None,
+                     bundle_index: int = -1) -> bytes:
         actor_id = ActorID.of(self.job_id)
         task_id = TaskID.for_task(self.job_id)
         descs, pinned = self._serialize_args(args, kwargs)
@@ -1309,6 +1316,8 @@ class CoreWorker:
                 "name": actor_name,
                 "namespace": namespace,
             },
+            placement_group_id=placement_group,
+            bundle_index=bundle_index,
         )
         client = _ActorClient(actor_id.binary())
         client.creation_pins = pinned
@@ -1356,7 +1365,13 @@ class CoreWorker:
         }))
 
     async def _on_gcs_push(self, channel: str, data):
-        if channel.startswith("actor:"):
+        if channel.startswith("pg:"):
+            # placement-group transition (CREATED / INFEASIBLE / REMOVED):
+            # wake every parked wait_placement_group with the record
+            for fut in self._pg_waiters.get(data.get("pg_id"), []):
+                if not fut.done():
+                    fut.set_result(data)
+        elif channel.startswith("actor:"):
             self._apply_actor_update(data)
             client = self.actor_clients.get(data["actor_id"])
             if client is not None:
@@ -1624,6 +1639,101 @@ class CoreWorker:
     def get_named_actor(self, name: str, namespace: str = ""):
         return self._io.run(self.gcs.call("get_named_actor", {
             "name": name, "namespace": namespace or "default"}))
+
+    def get_actor_info(self, actor_id: bytes):
+        return self._io.run(self.gcs.call("get_actor", {"actor_id": actor_id}))
+
+    # ------------------------------------------------------------------
+    # placement groups (reference: core_worker.cc:1524 CreatePlacementGroup)
+    # ------------------------------------------------------------------
+
+    def create_placement_group(self, pg_id: bytes, bundles, strategy,
+                               name=""):
+        # quantized at the boundary, as task-spec resources
+        return self._io.run(self.gcs.call("create_placement_group", {
+            "pg_id": pg_id,
+            "bundles": [{"resources": common.ResourceSet(dict(b)).raw()}
+                        for b in bundles],
+            "strategy": strategy,
+            "name": name,
+        }))
+
+    def remove_placement_group(self, pg_id: bytes):
+        return self._io.run(self.gcs.call("remove_placement_group",
+                                          {"pg_id": pg_id}))
+
+    def get_placement_group(self, pg_id: bytes):
+        return self._io.run(self.gcs.call("get_placement_group",
+                                          {"pg_id": pg_id}))
+
+    def wait_placement_group(self, pg_id: bytes,
+                             timeout: float | None = None):
+        """Park until the placement group is CREATED or INFEASIBLE, woken
+        by the GCS's `pg:<hex>` publish (its payload is the whole record),
+        with a slow re-poll (0.1 s doubling to 1 s) behind it. Returns the
+        record, None if `timeout` elapsed first; ValueError if the group
+        was removed."""
+        async def _wait():
+            channel = f"pg:{pg_id.hex()}"
+            loop = asyncio.get_running_loop()
+            fut: asyncio.Future = loop.create_future()
+            self._pg_waiters.setdefault(pg_id, []).append(fut)
+            await self.gcs.call("subscribe", {"channel": channel})
+            deadline = (None if timeout is None
+                        else time.monotonic() + timeout)
+            poll = 0.1
+            try:
+                # the subscription may have raced the transition: read
+                # once up front
+                info = await self.gcs.call("get_placement_group",
+                                           {"pg_id": pg_id})
+                while True:
+                    if info is None or info.get("state") == "REMOVED":
+                        raise ValueError(
+                            f"placement group {pg_id.hex()} was removed")
+                    if info.get("state") in ("CREATED", "INFEASIBLE"):
+                        return info
+                    remaining = poll
+                    if deadline is not None:
+                        remaining = min(remaining,
+                                        deadline - time.monotonic())
+                        if remaining <= 0:
+                            return None
+                    try:
+                        info = await asyncio.wait_for(asyncio.shield(fut),
+                                                      remaining)
+                    except asyncio.TimeoutError:
+                        poll = min(poll * 2, 1.0)
+                        info = await self.gcs.call("get_placement_group",
+                                                   {"pg_id": pg_id})
+                        continue
+                    # consumed: re-arm with a fresh future
+                    waiters = self._pg_waiters.get(pg_id, [])
+                    if fut in waiters:
+                        waiters.remove(fut)
+                    fut = loop.create_future()
+                    self._pg_waiters.setdefault(pg_id, []).append(fut)
+            finally:
+                waiters = self._pg_waiters.get(pg_id)
+                if waiters is not None:
+                    if fut in waiters:
+                        waiters.remove(fut)
+                    if not waiters:
+                        self._pg_waiters.pop(pg_id, None)
+                        try:
+                            await self.gcs.call("unsubscribe",
+                                                {"channel": channel})
+                        except Exception:
+                            pass
+
+        return self._io.run(_wait())
+
+    def get_named_placement_group(self, name: str):
+        return self._io.run(self.gcs.call("get_named_placement_group",
+                                          {"name": name}))
+
+    def list_placement_groups(self):
+        return self._io.run(self.gcs.call("list_placement_groups", {}))
 
     # ------------------------------------------------------------------
     # execution side (worker mode; reference: core_worker.cc ExecuteTask +

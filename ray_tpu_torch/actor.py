@@ -181,6 +181,7 @@ class ActorClass:
             resources["CPU"] = 0
         if num_gpus:
             resources["GPU"] = num_gpus
+        pg = opts.get("placement_group")
         actor_id = cw.create_actor(
             cls_id=cls_id,
             name=self._class_name,
@@ -192,6 +193,8 @@ class ActorClass:
                                      self._max_concurrency),
             actor_name=opts.get("name", ""),
             namespace=opts.get("namespace", ""),
+            placement_group=pg.id.binary() if pg is not None else None,
+            bundle_index=opts.get("placement_group_bundle_index", -1),
         )
         return ActorHandle(ActorID(actor_id), cls_id, self._class_name)
 

@@ -83,6 +83,7 @@ allreduce's direct gather against them.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import struct
@@ -727,29 +728,36 @@ class _IpcPallasOps:
             if self.rank == 0:
                 seg = create_segment(f"ring_events_{os.getpid()}_"
                                      f"{os.urandom(4).hex()}.seg", size)
-            mine = msgpack.packb({"events": handles,
-                                  "path": seg.path if seg else None})
-            infos = [msgpack.unpackb(b, raw=False)
-                     for b in self._allgather(mine)]
-            if seg is None:
-                seg = open_segment(infos[0]["path"], size)
-            events = []
-            for p, info in enumerate(infos):
-                if p == self.rank:
-                    events.append(own)
-                    continue
-                peer = []
-                for j in range(slots):
-                    ev = ctypes.c_void_p()
-                    h = info["events"][j * _IPC_HANDLE_BYTES:
-                                       (j + 1) * _IPC_HANDLE_BYTES]
-                    _ipc_check(lib, lib.ring_event_open(h, ctypes.byref(ev)),
-                               f"opening rank {p}'s event")
-                    peer.append(ev.value)
-                events.append(peer)
-        self._allgather(b"mapped")  # every rank has the segment open
-        if self.rank == 0:
-            os.unlink(seg.path)
+        try:
+            with torch.cuda.device(self.device):
+                mine = msgpack.packb({"events": handles,
+                                      "path": seg.path if seg else None})
+                infos = [msgpack.unpackb(b, raw=False)
+                         for b in self._allgather(mine)]
+                if seg is None:
+                    seg = open_segment(infos[0]["path"], size)
+                events = []
+                for p, info in enumerate(infos):
+                    if p == self.rank:
+                        events.append(own)
+                        continue
+                    peer = []
+                    for j in range(slots):
+                        ev = ctypes.c_void_p()
+                        h = info["events"][j * _IPC_HANDLE_BYTES:
+                                           (j + 1) * _IPC_HANDLE_BYTES]
+                        _ipc_check(lib, lib.ring_event_open(
+                            h, ctypes.byref(ev)), f"opening rank {p}'s event")
+                        peer.append(ev.value)
+                    events.append(peer)
+            self._allgather(b"mapped")  # every rank has the segment open
+        finally:
+            # rank 0 unlinks once every rank has mapped the segment, and
+            # also when a peer failed or died before: the file must not
+            # outlive the group
+            if self.rank == 0:
+                with contextlib.suppress(OSError):
+                    os.unlink(seg.path)
         self._events, self._counters = events, seg
 
     def _counter_off(self, rank: int, slot: int) -> int:

@@ -249,10 +249,17 @@ def create_collective_group(actors, world_size: int, ranks: list[int],
                             backend: str = "host",
                             group_name: str = "default",
                             timeout: float = 60.0, quantize=None,
-                            transport: str = "auto"):
+                            transport: str = "auto",
+                            placement_group=None):
     """Driver-side declarative setup (reference: collective.py:126): tells
     every actor (a `CollectiveActorMixin` of the runtime) to join the
-    group with its rank, all at once, and waits for every rank."""
+    group with its rank, all at once, and waits for every rank.
+
+    `placement_group`: the gang's reservation, taken as the reference
+    takes it. There, a record with an ICI_RING topology plan derives the
+    tier under "auto"; the port's records carry no plan (no TPU
+    topology, ROADMAP.md queue A item 4), so the groups vote per op as
+    without one."""
     import ray_tpu_torch
 
     if len(actors) != len(ranks) or len(actors) != world_size:

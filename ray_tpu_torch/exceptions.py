@@ -83,3 +83,23 @@ class TaskCancelledError(RayTpuError):
 
     def __reduce__(self):
         return (TaskCancelledError, (self.task_id_hex,))
+
+
+class PlacementGroupInfeasibleError(RayTpuError):
+    """The GCS determined this placement group cannot be reserved on
+    the CURRENT cluster (STRICT_SPREAD wanting more distinct nodes than
+    exist). Unlike a PENDING group, which waits for resources to free,
+    an infeasible one needs the cluster to grow; ready()/wait() raise
+    this typed instead of blocking forever. The group stays registered:
+    a joining node flips it back to PENDING and retries."""
+
+    def __init__(self, pg_id_hex: str = "", detail: str = ""):
+        self.pg_id_hex = pg_id_hex
+        self.detail = detail
+        super().__init__(
+            f"placement group {pg_id_hex or '?'} is infeasible on the "
+            f"current fleet: {detail or 'needs more nodes'}")
+
+    def __reduce__(self):
+        return (PlacementGroupInfeasibleError,
+                (self.pg_id_hex, self.detail))

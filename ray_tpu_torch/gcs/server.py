@@ -6,9 +6,11 @@ failure detection (GcsHeartbeatManager, gcs_heartbeat_manager.h:32), actor
 lifecycle + restart (GcsActorManager, gcs_actor_manager.h:157), actor
 scheduling (GcsActorScheduler, gcs_actor_scheduler.h:83), job registry,
 KV store + pubsub (GcsPubSub over Redis in the reference — here an
-in-process table + push channels over our RPC layer; no Redis process).
-The object directory and placement groups are not ported: the port runs
-one node.
+in-process table + push channels over our RPC layer; no Redis process),
+and placement groups (GcsPlacementGroupManager,
+gcs_placement_group_manager.h:130: bundle placement, the two-phase
+reservation on the raylets). The object directory is not ported: the
+port runs one node.
 
 State lives in this process's memory only: the reference's write-through
 table storage and GCS restart (gcs_table_storage.h:294) are not ported.
@@ -24,10 +26,16 @@ import random
 import time
 
 from ray_tpu_torch._private import rpc
+from ray_tpu_torch._private import stats as _stats
 from ray_tpu_torch._private.common import InsufficientResources, ResourceSet
 from ray_tpu_torch._private.config import Config, get_config, set_config
 
 logger = logging.getLogger("ray_tpu_torch.gcs")
+
+M_TOPO_FALLBACKS = _stats.Count(
+    "gcs.placement_topology_fallbacks_total",
+    "ICI_RING placements that fell back to PACK (the port registers no "
+    "topology coords, so every placed ICI_RING group counts)")
 
 # Actor states (reference: src/ray/protobuf/gcs.proto ActorTableData.ActorState)
 PENDING_CREATION = "PENDING_CREATION"
@@ -55,6 +63,8 @@ class GcsServer:
                                  name="gcs")
         self._pending_actor_queue: list[bytes] = []
         self._pending_logged: set[bytes] = set()
+        # pg_id -> record
+        self.placement_groups: dict[bytes, dict] = {}
 
     def _handlers(self):
         return {
@@ -73,6 +83,12 @@ class GcsServer:
             "get_named_actor": self.h_get_named_actor,
             "kill_actor": self.h_kill_actor,
             "report_worker_failure": self.h_report_worker_failure,
+            "create_placement_group": self.h_create_placement_group,
+            "remove_placement_group": self.h_remove_placement_group,
+            "get_placement_group": self.h_get_placement_group,
+            "get_named_placement_group": self.h_get_named_placement_group,
+            "list_placement_groups": self.h_list_placement_groups,
+            "get_metric": lambda conn, d: _stats.snapshot().get(d["name"]),
             "ping": lambda conn, data: "pong",
         }
 
@@ -146,6 +162,7 @@ class GcsServer:
                         f"node {node_id.hex()[:8]} joined @ {d['address']}",
                         node_id=node_id.hex())
         await self._try_schedule_pending_actors()
+        await self._retry_pending_pgs()
         return True
 
     async def h_heartbeat(self, conn, d):
@@ -153,6 +170,9 @@ class GcsServer:
         self.last_heartbeat[node_id] = time.monotonic()
         if "available" in d and node_id in self.nodes:
             self.available[node_id] = ResourceSet.from_raw(d["available"])
+            if any(r["state"] == "PENDING"
+                   for r in self.placement_groups.values()):
+                await self._retry_pending_pgs()
             # resources freed elsewhere may unblock queued actors —
             # without this, a pending actor waits for a node REGISTRATION
             # that may never come (the deadlock: all slots busy at
@@ -261,11 +281,22 @@ class GcsServer:
         spec = rec["spec"]
         need = ResourceSet.from_raw(spec["resources"])
         # Random-among-feasible policy (reference:
-        # gcs_actor_schedule_strategy.h:42 GcsRandomActorScheduleStrategy).
-        candidates = [
-            node_id for node_id, avail in self.available.items()
-            if need.is_subset_of(avail)
-        ]
+        # gcs_actor_schedule_strategy.h:42 GcsRandomActorScheduleStrategy),
+        # honoring the placement-group bundle's node when there is one
+        # (its resources are held by the bundle, not the node's pool).
+        candidates = []
+        if spec.get("pg_id") is not None:
+            pg = self.placement_groups.get(spec["pg_id"])
+            if pg and pg["state"] == "CREATED":
+                idx = spec.get("bundle_index", -1)
+                candidates = list({b["node_id"] for b in pg["bundles"]
+                                   if idx in (-1, b["bundle_index"])
+                                   and b["node_id"] in self.nodes})
+        if not candidates:
+            candidates = [
+                node_id for node_id, avail in self.available.items()
+                if need.is_subset_of(avail)
+            ]
         # Only ALIVE nodes with a live raylet connection are placeable.
         # A node whose raylet hasn't (re)dialed yet
         # is NOT dead (its actors are alive) — skip it and let the
@@ -431,6 +462,227 @@ class GcsServer:
             if self.actors.get(actor_id, {}).get("state") != DEAD:
                 await self._schedule_actor(actor_id)
 
+    # ---- placement groups ----
+    async def h_create_placement_group(self, conn, d):
+        """Two-phase bundle reservation across raylets (reference:
+        gcs_placement_group_scheduler.h:49; strategies :133-160). A group
+        that does not fit now stays PENDING and is retried as resources
+        free and nodes join; STRICT_SPREAD wanting more nodes than the
+        cluster has goes INFEASIBLE (typed at the client's ready())."""
+        pg_id = d["pg_id"]
+        # idempotent: a replayed call must not reset a CREATED group
+        if pg_id not in self.placement_groups:
+            self.placement_groups[pg_id] = {
+                "pg_id": pg_id, "bundles": [dict(b) for b in d["bundles"]],
+                "strategy": d.get("strategy", "PACK"), "state": "PENDING",
+                "name": d.get("name", ""),
+            }
+        return {"state": await self._try_create_pg(pg_id)}
+
+    async def _retry_pending_pgs(self):
+        for pg_id, rec in list(self.placement_groups.items()):
+            # INFEASIBLE retries too: a joining node can make a too-wide
+            # STRICT_SPREAD placeable again
+            if rec["state"] in ("PENDING", "INFEASIBLE"):
+                await self._try_create_pg(pg_id)
+
+    async def _try_create_pg(self, pg_id) -> str:
+        rec = self.placement_groups.get(pg_id)
+        if rec is None:
+            return "REMOVED"
+        if rec["state"] == "CREATED":
+            return "CREATED"
+        # in-flight guard: while one two-phase attempt awaits the raylets,
+        # a concurrent retry (heartbeat, node join) must not prepare the
+        # bundles a second time
+        if rec.get("creating"):
+            return "PENDING"
+        rec["creating"] = True
+        try:
+            return await self._do_create_pg(pg_id, rec)
+        finally:
+            rec["creating"] = False
+
+    async def _do_create_pg(self, pg_id, rec) -> str:
+        bundles = rec["bundles"]
+        strategy = rec["strategy"]
+        placement = self._place_bundles(bundles, strategy)
+        if placement is None:
+            alive = sum(1 for n in self.node_conns.values()
+                        if n is not None and not n.closed)
+            if strategy == "STRICT_SPREAD" and len(bundles) > alive:
+                detail = (f"{len(bundles)} STRICT_SPREAD bundles "
+                          f"need distinct nodes; fleet has {alive}")
+                if (rec["state"] == "INFEASIBLE"
+                        and rec.get("detail") == detail):
+                    return "INFEASIBLE"
+                rec["state"] = "INFEASIBLE"
+                rec["detail"] = detail
+                await self.publish(f"pg:{pg_id.hex()}", _pg_public(rec))
+                return "INFEASIBLE"
+            if rec["state"] == "INFEASIBLE":
+                # structurally placeable again but not yet reserved
+                rec["state"] = "PENDING"
+                rec.pop("detail", None)
+                await self.publish(f"pg:{pg_id.hex()}", _pg_public(rec))
+            return "PENDING"
+        # prepare
+        prepared = []
+        for idx, node_id in placement.items():
+            conn_n = self.node_conns.get(node_id)
+            try:
+                if not await conn_n.call("prepare_bundle", {
+                        "pg_id": pg_id, "bundle_index": idx,
+                        "resources": bundles[idx]["resources"]}):
+                    break
+                prepared.append((idx, node_id))
+            except Exception:
+                break
+        if len(prepared) < len(placement):
+            for idx, node_id in prepared:
+                await self._bundle_call(node_id, "cancel_bundle", pg_id, idx)
+            return "PENDING"
+        # commit
+        committed = []
+        for idx, node_id in placement.items():
+            conn_n = self.node_conns.get(node_id)
+            try:
+                if conn_n is None or conn_n.closed:
+                    raise ConnectionError("node connection lost")
+                await conn_n.call("commit_bundle",
+                                  {"pg_id": pg_id, "bundle_index": idx})
+                committed.append(idx)
+            except Exception:
+                # a node died between prepare and commit: unwind every
+                # bundle and stay PENDING for the next retry
+                for jdx, jnode in placement.items():
+                    await self._bundle_call(
+                        jnode, "return_bundle" if jdx in committed
+                        else "cancel_bundle", pg_id, jdx)
+                return "PENDING"
+        if self.placement_groups.get(pg_id) is not rec:
+            # removed while the two phases were in flight
+            for idx, node_id in placement.items():
+                await self._bundle_call(node_id, "return_bundle", pg_id, idx)
+            return "REMOVED"
+        rec["state"] = "CREATED"
+        rec.pop("detail", None)
+        rec["bundles"] = [
+            {"bundle_index": i, "resources": bundles[i]["resources"],
+             "node_id": placement[i]}
+            for i in range(len(bundles))]
+        # wake PlacementGroup.ready() waiters with the whole record
+        await self.publish(f"pg:{pg_id.hex()}", _pg_public(rec))
+        return "CREATED"
+
+    async def _bundle_call(self, node_id, method: str, pg_id, idx: int):
+        """cancel_bundle / return_bundle on a node; a lost node has
+        nothing left to give back."""
+        conn_n = self.node_conns.get(node_id)
+        if conn_n is None or conn_n.closed:
+            return
+        try:
+            await conn_n.call(method, {"pg_id": pg_id, "bundle_index": idx})
+        except Exception:
+            pass
+
+    def _place_bundles(self, bundles, strategy):
+        """Map bundle_index -> node_id, or None if infeasible now
+        (reference: gcs/server.py _place_bundles; strategies:
+        gcs_placement_group_scheduler.h:133-160). ICI_RING orders
+        consecutive ranks onto ICI neighbours in the reference; the port
+        registers no topology coords, so it places as PACK, counted by
+        `gcs.placement_topology_fallbacks_total`, as the reference does
+        for nodes without coords."""
+        if strategy == "ICI_RING":
+            placed = self._place_bundles(bundles, "PACK")
+            if placed is not None:
+                # count only a placement: a capacity-starved group stays
+                # PENDING and re-enters here on every retry
+                M_TOPO_FALLBACKS.inc()
+            return placed
+        avail = {nid: r.copy() for nid, r in self.available.items()
+                 if self.nodes.get(nid, {}).get("state") == "ALIVE"}
+        node_ids = list(avail)
+        if not node_ids:
+            return None
+        needs = [ResourceSet.from_raw(b["resources"]) for b in bundles]
+        placement: dict[int, bytes] = {}
+
+        def fits(node_id, res: ResourceSet):
+            return res.is_subset_of(avail[node_id])
+
+        if strategy in ("PACK", "STRICT_PACK"):
+            # every bundle on one node first
+            for node_id in sorted(node_ids,
+                                  key=lambda n: -avail[n].get("CPU")):
+                trial = avail[node_id].copy()
+                ok = True
+                for need in needs:
+                    if not need.is_subset_of(trial):
+                        ok = False
+                        break
+                    trial.subtract(need)
+                if ok:
+                    return {i: node_id for i in range(len(bundles))}
+            if strategy == "STRICT_PACK":
+                return None
+            # PACK falls back to spread-fit
+        if strategy == "STRICT_SPREAD":
+            if len(bundles) > len(node_ids):
+                return None
+            used = set()
+            for i, need in enumerate(needs):
+                cands = [n for n in node_ids
+                         if n not in used and fits(n, need)]
+                if not cands:
+                    return None
+                node = random.choice(cands)
+                used.add(node)
+                avail[node].subtract(need)
+                placement[i] = node
+            return placement
+        # PACK fallback / SPREAD: the least-used node that fits
+        order = node_ids if strategy != "SPREAD" else random.sample(
+            node_ids, len(node_ids))
+        for i, need in enumerate(needs):
+            cands = [n for n in order if fits(n, need)]
+            if not cands:
+                return None
+            if strategy == "SPREAD":
+                node = min(cands, key=lambda n: sum(
+                    1 for p in placement.values() if p == n))
+            else:
+                node = cands[0]
+            avail[node].subtract(need)
+            placement[i] = node
+        return placement
+
+    async def h_remove_placement_group(self, conn, d):
+        rec = self.placement_groups.pop(d["pg_id"], None)
+        if rec is None:
+            return False
+        await self.publish(f"pg:{d['pg_id'].hex()}",
+                           {"pg_id": d["pg_id"], "state": "REMOVED"})
+        if rec["state"] == "CREATED":
+            for b in rec["bundles"]:
+                await self._bundle_call(b["node_id"], "return_bundle",
+                                        d["pg_id"], b["bundle_index"])
+        return True
+
+    async def h_get_placement_group(self, conn, d):
+        rec = self.placement_groups.get(d["pg_id"])
+        return _pg_public(rec) if rec else None
+
+    async def h_get_named_placement_group(self, conn, d):
+        for rec in self.placement_groups.values():
+            if rec.get("name") and rec["name"] == d["name"]:
+                return _pg_public(rec)
+        return None
+
+    async def h_list_placement_groups(self, conn, d):
+        return [_pg_public(r) for r in self.placement_groups.values()]
+
     # ---- events ----
     def _event(self, severity: str, label: str, message: str, **fields):
         """GCS-originated structured event (the GCS's event log file)."""
@@ -463,6 +715,10 @@ class GcsServer:
             os.rename(tmp, ready_file)
         while True:
             await asyncio.sleep(3600)
+
+
+def _pg_public(rec):
+    return {k: v for k, v in rec.items() if k != "creating"}
 
 
 def _node_public(info):

@@ -5,8 +5,10 @@ resources (reference: src/ray/raylet/node_manager.h:133,
 HandleRequestWorkerLease node_manager.cc:1318) and queues what does not fit
 now, manages the pool of Python worker processes (worker_pool.h:92), tracks
 the node's objects and spills them to disk (local_object_manager.h:38), and
-executes the GCS's actor-creation requests. Spillback to other nodes,
-object transfer between nodes and placement-group bundles are not ported.
+executes the GCS's actor-creation and placement-group bundle requests
+(the bundle two-phase commit, placement_group_resource_manager.h:51, and
+leases granted from a committed bundle). Spillback to other nodes and
+object transfer between nodes are not ported.
 
 Task *data* never flows through the raylet: owners push tasks directly to
 leased workers over their own connections (the direct-call architecture of
@@ -59,11 +61,15 @@ class Raylet:
         self.is_head = is_head
         self.labels = labels
         self.total = ResourceSet(resources)
-        # share of each GPU held by leases, by GPU id: a lease asking for
-        # g GPUs is granted whole free ids (g >= 1) or a share of one id
-        # (g < 1), and its worker runs with CUDA_VISIBLE_DEVICES = them
-        self.gpu_used = [0.0] * int(self.total.get("GPU"))
+        # free share of each GPU, by GPU id: a lease asking for g GPUs is
+        # granted whole free ids (g >= 1) or a share of one id (g < 1),
+        # and its worker runs with CUDA_VISIBLE_DEVICES = them
+        self.gpu_free = {i: 1.0 for i in range(int(self.total.get("GPU")))}
         self.available = self.total.copy()
+        # placement-group bundles: (pg_id, index) -> {"resources",
+        # "available", "gpu_free" (the bundle's share of each card it
+        # fixed at prepare time, unleased), "state": PREPARED|COMMITTED}
+        self.bundles: dict[tuple[bytes, int], dict] = {}
         self.store = make_store(store_root, config)
         self.store_root = store_root
 
@@ -120,6 +126,10 @@ class Raylet:
             # gcs-facing
             "create_actor": self.h_create_actor,
             "kill_actor_worker": self.h_kill_actor_worker,
+            "prepare_bundle": self.h_prepare_bundle,
+            "commit_bundle": self.h_commit_bundle,
+            "cancel_bundle": self.h_cancel_bundle,
+            "return_bundle": self.h_return_bundle,
             "ping": lambda conn, d: "pong",
         }
 
@@ -315,48 +325,65 @@ class Raylet:
     # scheduling (reference: cluster_task_manager.cc)
     # ------------------------------------------------------------------
 
-    def _try_acquire(self, spec) -> ResourceSet | None:
-        need = ResourceSet.from_raw(spec["resources"])
-        if not need.is_subset_of(self.available):
+    @staticmethod
+    def _bundle_key(spec) -> tuple[bytes, int] | None:
+        if spec.get("pg_id") is None:
             return None
-        need.gpu_ids = self._take_gpus(need.get("GPU"))
+        return (spec["pg_id"], spec.get("bundle_index", -1))
+
+    def _find_bundle(self, key):
+        if key[1] != -1:
+            b = self.bundles.get(key)
+            return (key, b) if b and b["state"] == "COMMITTED" else None
+        # wildcard bundle index: any committed bundle of the group here
+        for k, b in self.bundles.items():
+            if k[0] == key[0] and b["state"] == "COMMITTED":
+                return k, b
+        return None
+
+    def _try_acquire(self, spec) -> ResourceSet | None:
+        """The lease's resources, taken from the node's pool or, for a
+        spec in a placement group, from its committed bundle (a GPU
+        bundle's lease gets the bundle's cards); None if they do not fit
+        now."""
+        need = ResourceSet.from_raw(spec["resources"])
+        key = self._bundle_key(spec)
+        if key is None:
+            pool, gpu_free = self.available, self.gpu_free
+        else:
+            found = self._find_bundle(key)
+            if found is None:
+                return None
+            need.bundle, bundle = found
+            pool, gpu_free = bundle["available"], bundle["gpu_free"]
+        if not need.is_subset_of(pool):
+            return None
+        need.gpu_ids = _take_gpus(gpu_free, need.get("GPU"))
         if need.gpu_ids is None:
             return None
-        self.available.subtract(need)
+        pool.subtract(need)
         return need
 
-    def _take_gpus(self, amount: float) -> tuple[int, ...] | None:
-        """Pick the GPU ids of a lease that asks for `amount` GPUs and
-        mark them held: whole free cards for amount >= 1, else the most
-        used card that still has the share free. None when the free
-        shares are too fragmented."""
-        if amount <= 0:
-            return ()
-        if amount >= 1:
-            free = [i for i, u in enumerate(self.gpu_used) if u == 0]
-            if len(free) < amount:
-                return None
-            ids = tuple(free[:int(amount)])
-        else:
-            fits = [i for i, u in enumerate(self.gpu_used)
-                    if u + amount <= 1 + 1e-9]
-            if not fits:
-                return None
-            ids = (max(fits, key=lambda i: self.gpu_used[i]),)
-        share = amount / len(ids)
-        for i in ids:
-            self.gpu_used[i] += share
-        return ids
-
     def _release(self, res: ResourceSet):
+        """Gives a lease's resources back to where they came from: its
+        bundle, or the node's pool (also for a bundle removed while the
+        lease was out)."""
+        bundle = self.bundles.get(res.bundle) if res.bundle else None
+        if bundle is None:
+            pool, gpu_free = self.available, self.gpu_free
+        else:
+            pool, gpu_free = bundle["available"], bundle["gpu_free"]
         if res.gpu_ids:
             share = res.get("GPU") / len(res.gpu_ids)
             for i in res.gpu_ids:
-                self.gpu_used[i] = max(0.0, self.gpu_used[i] - share)
+                gpu_free[i] += share
             res.gpu_ids = ()
-        self.available.add(res)
+        pool.add(res)
+        res.bundle = None
 
     def _feasible_ever(self, spec) -> bool:
+        if self._bundle_key(spec) is not None:
+            return True  # bundles are explicit placements: wait for them
         return ResourceSet.from_raw(spec["resources"]).is_subset_of(
             self.total)
 
@@ -574,6 +601,58 @@ class Raylet:
         return True
 
     # ------------------------------------------------------------------
+    # placement group bundles (two-phase; reference:
+    # placement_group_resource_manager.h:51)
+    # ------------------------------------------------------------------
+
+    async def h_prepare_bundle(self, conn, d):
+        """Reserves a bundle's resources from the node's pool; a GPU
+        bundle fixes its cards now, and every lease in it gets them."""
+        need = ResourceSet.from_raw(d["resources"])
+        if not need.is_subset_of(self.available):
+            return False
+        gpus = _take_gpus(self.gpu_free, need.get("GPU"))
+        if gpus is None:
+            return False
+        self.available.subtract(need)
+        share = need.get("GPU") / len(gpus) if gpus else 0.0
+        self.bundles[(d["pg_id"], d["bundle_index"])] = {
+            "resources": need, "available": need.copy(),
+            "gpu_free": {i: share for i in gpus}, "state": "PREPARED"}
+        return True
+
+    async def h_commit_bundle(self, conn, d):
+        bundle = self.bundles.get((d["pg_id"], d["bundle_index"]))
+        if bundle is None:
+            return False
+        bundle["state"] = "COMMITTED"
+        await self._dispatch_pending()
+        return True
+
+    async def h_cancel_bundle(self, conn, d):
+        """Removes a bundle: its unleased part goes back to the node's
+        pool now, each leased part as its lease ends (_release). Workers
+        still leasing from the group are killed, as the reference kills
+        the tasks of a removed group."""
+        bundle = self.bundles.pop((d["pg_id"], d["bundle_index"]), None)
+        if bundle is None:
+            return True
+        self.available.add(bundle["available"])
+        for i, free in bundle["gpu_free"].items():
+            self.gpu_free[i] += free
+        for w in list(self.workers.values()):
+            if (w.lease_resources is not None
+                    and w.lease_resources.bundle is not None
+                    and w.lease_resources.bundle[0] == d["pg_id"]):
+                await self.h_kill_actor_worker(conn,
+                                               {"worker_id": w.worker_id})
+        await self._dispatch_pending()
+        return True
+
+    async def h_return_bundle(self, conn, d):
+        return await self.h_cancel_bundle(conn, d)
+
+    # ------------------------------------------------------------------
     # objects of this node (reference: local_object_manager.h)
     # ------------------------------------------------------------------
 
@@ -728,8 +807,11 @@ class Raylet:
     # ------------------------------------------------------------------
 
     async def h_cluster_info(self, conn, d):
+        # worker_pids: a worker leaves it in the step that returns its
+        # lease (_on_disconnect), so callers can wait for both
         return {"nodes": list(self.cluster_nodes.values()),
-                "available": self.available.raw()}
+                "available": self.available.raw(),
+                "worker_pids": [w.pid for w in self.workers.values()]}
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -856,6 +938,30 @@ class Raylet:
             os.rename(tmp, ready_file)
         while True:
             await asyncio.sleep(3600)
+
+
+def _take_gpus(free: dict[int, float], amount: float
+               ) -> tuple[int, ...] | None:
+    """Picks the GPU ids of a lease that asks for `amount` GPUs from the
+    free shares `free` (the node's, or a bundle's) and marks them taken:
+    whole free cards for amount >= 1, else the most used card that still
+    has the share free. None when the free shares are too fragmented."""
+    if amount <= 0:
+        return ()
+    if amount >= 1:
+        whole = [i for i, f in free.items() if f >= 1 - 1e-9]
+        if len(whole) < amount:
+            return None
+        ids = tuple(whole[:int(amount)])
+    else:
+        fits = [i for i, f in free.items() if f >= amount - 1e-9]
+        if not fits:
+            return None
+        ids = (min(fits, key=lambda i: free[i]),)
+    share = amount / len(ids)
+    for i in ids:
+        free[i] -= share
+    return ids
 
 
 def main():

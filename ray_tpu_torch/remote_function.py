@@ -90,6 +90,7 @@ class RemoteFunction:
                 return refs[0]
             return refs
         num_returns = opts.get("num_returns", self._num_returns)
+        pg = opts.get("placement_group")
         refs = cw.submit_task(
             fn_id=fn_id,
             name=opts.get("name", self._name),
@@ -98,6 +99,8 @@ class RemoteFunction:
             num_returns=num_returns,
             resources=self._resources_dict(opts),
             max_retries=opts.get("max_retries", self._max_retries),
+            placement_group=pg.id.binary() if pg is not None else None,
+            bundle_index=opts.get("placement_group_bundle_index", -1),
         )
         if num_returns == 1:
             return refs[0]

@@ -207,10 +207,125 @@ def _cluster_resources(rt):
             if k in ("CPU", "TPU", "GPU")}
 
 
+def _util(rt):
+    import importlib
+
+    return importlib.import_module(rt.__name__ + ".util")
+
+
+def _accelerator(rt) -> str:
+    return "TPU" if rt.__name__ == "ray_tpu" else "GPU"
+
+
+def _pg_create_ready_remove(rt):
+    util = _util(rt)
+    pg = util.placement_group([{"CPU": 1}, {"CPU": 1}])
+    ready = pg.ready(timeout=30)
+    listed = pg.id.hex() in util.placement_group_table()
+    specs, count = pg.bundle_specs, pg.bundle_count
+    util.remove_placement_group(pg)
+    return [ready, listed, specs, count,
+            pg.id.hex() in util.placement_group_table()]
+
+
+def _pg_named(rt):
+    util = _util(rt)
+    pg = util.placement_group([{"CPU": 1}], name="runtime_pg")
+    pg.ready(timeout=30)
+    found = util.get_placement_group("runtime_pg").id == pg.id
+    util.remove_placement_group(pg)
+    try:
+        util.get_placement_group("runtime_pg")
+        after = "found"
+    except ValueError as e:
+        after = type(e).__name__
+    return [found, after]
+
+
+def _pg_invalid_arguments(rt):
+    util = _util(rt)
+    out = []
+    for kwargs in ({"bundles": [{"CPU": 1}], "strategy": "BOGUS"},
+                   {"bundles": []}, {"bundles": [{}]},
+                   {"bundles": [{"CPU": -1}]}, {"bundles": ["CPU"]},
+                   {"bundles": [{"CPU": 1}], "tpu_slice": "v5e-16",
+                    "strategy": "SPREAD"},
+                   {"bundles": [{"CPU": 1}], "cost_model": "ring"}):
+        try:
+            util.placement_group(**kwargs)
+            out.append("created")
+        except Exception as e:
+            out.append(type(e).__name__)
+    return out
+
+
+def _pg_task_and_actor_in_a_bundle(rt):
+    util = _util(rt)
+    pg = util.placement_group([{"CPU": 1}, {"CPU": 1}])
+    pg.ready(timeout=30)
+
+    @rt.remote
+    def plus_one(x):
+        return x + 1
+
+    try:
+        task = plus_one.options(placement_group=pg,
+                                placement_group_bundle_index=0).remote(41)
+        counter = rt.remote(_Counter).options(
+            placement_group=pg, placement_group_bundle_index=1,
+            num_cpus=1).remote(10)
+        out = rt.get([task, counter.increment.remote(5)], timeout=60)
+        rt.kill(counter)
+        return out
+    finally:
+        util.remove_placement_group(pg)
+
+
+def _pg_removal_frees_resources(rt):
+    """A second group that needs the node's whole accelerator waits for
+    the first, and is placed once the first is removed."""
+    util = _util(rt)
+    bundle = [{_accelerator(rt): 2}]
+    first = util.placement_group(bundle)
+    out = [first.ready(timeout=30)]
+    second = util.placement_group(bundle)
+    out.append(second.ready(timeout=1))
+    util.remove_placement_group(first)
+    out.append(second.ready(timeout=30))
+    util.remove_placement_group(second)
+    return out
+
+
+def _pg_strict_spread_on_one_node(rt):
+    util = _util(rt)
+    pg = util.placement_group([{"CPU": 1}, {"CPU": 1}],
+                              strategy="STRICT_SPREAD")
+    try:
+        return pg.ready(timeout=10)
+    finally:
+        util.remove_placement_group(pg)
+
+
+def _pg_ici_ring_places_as_pack(rt):
+    util = _util(rt)
+    pg = util.placement_group([{"CPU": 1}, {"CPU": 1}], strategy="ICI_RING")
+    try:
+        ready = pg.ready(timeout=30)
+        rec = util.placement_group_table()[pg.id.hex()]
+        return [ready, rec["state"], rec["strategy"], rec["topology_plan"],
+                len({b["node_id"] for b in rec["bundles"]}),
+                [b["resources"] for b in rec["bundles"]]]
+    finally:
+        util.remove_placement_group(pg)
+
+
 PROGRAMS = [_put_get_numpy, _task_chain, _num_returns,
             _error_through_dependency, _wait_timeout, _named_actor,
             _method_order, _kill_then_call, _max_restarts,
-            _cluster_resources]
+            _cluster_resources, _pg_create_ready_remove, _pg_named,
+            _pg_invalid_arguments, _pg_task_and_actor_in_a_bundle,
+            _pg_removal_frees_resources, _pg_strict_spread_on_one_node,
+            _pg_ici_ring_places_as_pack]
 
 
 def _outcome(program, rt):
@@ -341,6 +456,37 @@ def test_gpu_actors_are_pinned_to_their_own_card(clusters):
     assert ray_tpu_torch.get(pending, timeout=60) == seen[0]
     for actor in (b, c):
         ray_tpu_torch.kill(actor)
+
+
+@pytest.mark.parametrize("bundles,shares", [
+    ([{"GPU": 1}, {"GPU": 1}], [[0.5, 0.5], [1]]),
+    ([{"GPU": 0.5}, {"GPU": 0.5}], [[0.25, 0.25], [0.5]])],
+    ids=["a_card_a_bundle", "two_bundles_one_card"])
+def test_gpu_bundle_pins_its_leases_to_its_card(clusters, bundles, shares):
+    """A GPU bundle fixes its card when it is reserved, and every lease in
+    it, fractional shares included, runs with exactly that card in
+    CUDA_VISIBLE_DEVICES: bundles of whole cards get a card each, two
+    half-card bundles share one."""
+    from ray_tpu_torch.util import placement_group, remove_placement_group
+
+    pg = placement_group(bundles)
+    assert pg.ready(timeout=30)
+    pinned = ray_tpu_torch.remote(_Pinned)
+    actors = [[pinned.options(placement_group=pg,
+                              placement_group_bundle_index=i,
+                              num_gpus=g).remote() for g in gs]
+              for i, gs in enumerate(shares)]
+    try:
+        seen = [ray_tpu_torch.get([a.visible.remote() for a in row],
+                                  timeout=60) for row in actors]
+    finally:
+        for actor in (a for row in actors for a in row):
+            ray_tpu_torch.kill(actor)
+        remove_placement_group(pg)
+    assert len(set(seen[0])) == 1
+    cards = {seen[0][0], seen[1][0]}
+    assert cards <= {"0", "1"}
+    assert len(cards) == (2 if bundles[0]["GPU"] == 1 else 1)
 
 
 def test_session_and_store_follow_the_tempdir(clusters, monkeypatch):
