@@ -182,7 +182,7 @@ def _dp(libs):
             fields, _, _ = chip_smoke._dp_measure(trainer, label)
             print(json.dumps({"dp": label, "b8": name, **{
                 k: fields[k] for k in ("tokens_s",
-                                       "ring_share_of_device_time",
+                                       "collective_share_of_device_time",
                                        "device_busy_ms_per_step",
                                        "wall_ms_per_step_profiled")}}),
                   flush=True)

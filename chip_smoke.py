@@ -71,25 +71,35 @@ JSON line:
    them, a rank a process: rank actors joined to one per-process
    HostGroup (transport "pallas"), w = 2 and 4 on one card ({"GPU": 1/w}
    each) or, on a machine with more cards, w = 2 and min(4, cards) a card
-   each: every
-   built op and dtype at a ragged 10,007 and the four kernels at GPT-2's
-   bucket, each rank's output's sha256 against the plain version's, which
-   this process computes from the same seeded inputs; every rank's
-   launches counted in its own process and none here; a withheld rank
-   that each peer names in a TimeoutError; the ms of one call (every
-   rank's phases and copies) beside the bound and the copies' ms; the
-   NCCL tier's sum and ms where every rank holds a card of its own, else
-   its vote of 0 and a forced "device" group's RuntimeError.
+   each: every built op and dtype at a ragged 10,007 and the four kernels
+   at GPT-2's bucket, each rank's output's sha256 against the plain
+   version's, which this process computes from the same seeded inputs;
+   the group's route of each case as the reference's size gate picks it
+   (ranks sharing a card: the kernels at every size; a card a rank: the
+   kernels up to 64 KB and for int8 at every size, NCCL above for the
+   rest, where the kernels are held through their transport alone);
+   every rank's launches counted in its own process and none here; a
+   withheld rank that each peer names in a TimeoutError; the ms of one
+   call (every rank's phases and copies) beside the bound and the copies'
+   ms; where every rank holds a card of its own, the NCCL tier's sum and
+   ms and the crossover table (one f32 sum through the group by NCCL and
+   by the kernels at 16 KB, 64 KB, 256 KB, 1 MB and the bucket), else the
+   NCCL tier's vote of 0 and a forced "device" group's RuntimeError.
 10. train_gpt2_dp: GPT-2 124M through Trainer(num_workers=2 (one card) or
    min(4, cards), collective_transport="pallas") at 12 x 1024 tokens a
    rank, a worker process a rank, exact, quantize="int8" and
    sharded=True: tokens/s over the ranks beside the in-process layout's
-   earlier tokens/s, ring launches of each rank read from its own worker,
-   each tier's ops, the ring kernels' share of device time, peak memory,
-   losses (the device times from every rank's train(profile_dir=) chrome
-   trace); the ranks bit-identical (a digest of each rank's parameters),
-   in distinct processes, sharded bit-identical to exact, int8 within a
-   band of exact with its saved bytes counted, and a float32 DP step
+   earlier tokens/s, ring launches of each rank read from its own worker
+   (one card: the kernels carry every bucket; a card a rank: the size
+   gate sends the unquantized bucket to NCCL, and the device tier's ops
+   are counted instead, while B8 keeps the int8 one), each tier's ops,
+   the collectives' share of device time, peak memory, losses (the
+   device times from every rank's train(profile_dir=) chrome trace); the
+   ranks bit-identical (a digest of each rank's parameters), in distinct
+   processes, sharded bit-identical to exact on one card (a card a rank:
+   within DP_SHARDED_TOL by relative L2, and a sharded run on half the
+   batch beyond it), int8 within a band of exact with its saved bytes
+   counted, and a float32 DP step (and, a card a rank, a sharded one)
    against a single-worker step at the combined batch.
 11. train_gpt2_elastic: the Trainer's fault tolerance on GPT-2 124M,
    sharded over the same ranks, every rank the same tokens, 6 steps an
@@ -105,7 +115,28 @@ JSON line:
    segment of the dead generation is left. It prints the re-gang's
    seconds (the death to the next generation restored), sync_state's,
    save's and load's, and the checkpoint's bytes.
-Then the card's name and power limit, the kernels summary line and, last,
+12. train_ingest (after train): ResNet-50 as phase train runs it, fed by
+   Trainer(ingest=IngestSpec(depth 2)) from a DatasetShard actor that
+   streams host batches, a distinct one each step, through the object
+   store, and an in-memory control of the same batches, cuDNN
+   deterministic in both: img/s of both beside phase train's and the raw
+   loop's, train.ingest_wait_s p50 and p99 of the measured epoch (from
+   the worker), the worker's B1 launches, the two arms' losses (bit for
+   bit).
+13. train_gpt2_mesh (after train_gpt2_dp): GPT-2 124M under
+   config={"multihost": True} on min(4, cards) ranks, a card a rank:
+   mesh_mode="fsdp" (the table's (w, 1): data parallel) and an explicit
+   (1, w) ('data','fsdp') mesh with its parameters sharded: tokens/s of
+   each timed epoch, peak memory a rank, the relative L2 of the second's
+   parameters against the first's (within MESH_TOL, and the first's one
+   step later beyond it), B2 and B3 in every rank's process; ProcessMeshGroup's
+   allreduce (SUM, MAX), broadcast, allgather, reducescatter and
+   shift_right bit for bit against their plain versions. On one card one
+   worker with mesh_mode="fsdp" (a (1, 1) mesh), and a multihost trainer
+   of two ranks must raise (NCCL refuses two ranks on one card). On every
+   card shift_right on the in-process group (the allgather kernel).
+Then each phase's seconds (phase_seconds), the card's name and power
+limit, the kernels summary line and, last,
 {"ok": true, "device": {...}}. `--only collectives_procs,train_gpt2_dp`
 runs the device and build phases and then only the named ones, the
 runtime started as in a whole run where one of them needs it, and prints
@@ -904,6 +935,10 @@ def measured_train(trainer, steps, **kw):
                             "max_memory_allocated": peak}
 
 
+# phase train's img/s and its raw loop's, printed beside train_ingest's
+TRAIN_FIELDS = {}
+
+
 def phase_train(dev):
     import ray_tpu_torch
     from ray_tpu_torch.models import resnet
@@ -941,6 +976,7 @@ def phase_train(dev):
         raise RuntimeError(f"train: {launches} launches for {STEPS} steps "
                            f"of {n_bn} batchnorm layers, loss finite "
                            f"{finite}")
+    TRAIN_FIELDS.update(img_s=img_s, raw_img_s=raw_img_s)
     return launches
 
 
@@ -1535,13 +1571,19 @@ def phase_collectives(dev):
 PROC_ITERS = 10  # back-to-back calls a timed case, every rank at once
 # what the numbers of B5-B8's rows in the kernels line measure
 PROCS_BASIS = {"ms": "one call through the per-process group, a rank a "
-               "process, hub vote included (collectives_procs, first run)",
+               "process, hub vote included, where the group routes it to "
+               "the kernel (ranks sharing a card); else one call of the "
+               "kernels' transport alone (collectives_procs, first run)",
                "bound_ms": "the same call's bytes or operations",
                "plain_ms": "the plain version over every rank's tensor in "
                "one process (collectives)",
                "library_ms": "one PyTorch call over every rank's tensor in "
                "one process (collectives)"}
 NCCL_TOL = 1e-6  # NCCL's sum against the plain ring's, relative L2
+# the size gate (HostGroup.PALLAS_MAX_BYTES, the reference's 64 KB) and
+# the crossover's f32 sizes: 16 KB, 64 KB, 256 KB, 1 MB, GPT-2's bucket
+GATE_BYTES = 64 << 10
+CROSSOVER_FLOATS = (4096, 16384, 65536, 262144, 124402944)
 
 
 def _proc_cases(w):
@@ -1552,6 +1594,10 @@ def _proc_cases(w):
     return [c for c in _ring_cases(w)
             if c[4] == 10007 or (c[4] == GPT2_NUMEL and c[1] == "add"
                                  and c[2] == torch.float32)]
+
+
+def _elt(dtype):
+    return torch.empty((), dtype=dtype).element_size()
 
 
 def _digest(t):
@@ -1577,19 +1623,27 @@ def _rank_actor_cls():
 
         def case(self, group, kind, combine, dtype, length, w, seed):
             """The rank's input of the case (rank r's of the w made from
-            the seed, as the driver makes them), through the group twice;
-            the output's digest; the ms of one call through the group as
-            the main path makes it (`ms`: the hub vote, the phases and the
-            copies into and out of the mapped buffers) and of one call of
-            its transport alone (`transport_ms`: no vote), PROC_ITERS
-            calls back to back after a barrier each."""
+            the seed, as the driver makes them), through the kernels twice:
+            through the group where it routes to them, else (a payload
+            over the size gate where every rank holds a card of its own,
+            which the group sends to NCCL) through the transport alone;
+            the output's digest; the group's route (`routed`: the tier that
+            carried one call through it); the ms of one call through the
+            group as the main path makes it (`ms`: the hub vote, then the
+            phases and the copies into and out of the mapped buffers, or
+            NCCL) and of one call of the kernels' transport alone
+            (`transport_ms`: no vote), PROC_ITERS calls back to back after
+            a barrier each."""
             from ray_tpu_torch import collective as col
+            from ray_tpu_torch.collective import metrics
 
             dev = torch.device("cuda", 0)
             g = col.get_group(group)
             gen = torch.Generator(device=dev).manual_seed(seed)
             x = _ring_inputs(combine, dtype, length, w, dev, gen)[g.rank]
             op = _RING_OPS[combine]
+            gated = (g._device_shaped and kind != "quantized"
+                     and x.numel() * x.element_size() > g.PALLAS_MAX_BYTES)
 
             def call(t):
                 if kind == "allreduce":
@@ -1600,10 +1654,17 @@ def _rank_actor_cls():
                     return t.reducescatter(x)
                 return torch.stack(t.allgather(x))
 
-            out = call(g)
-            again = call(g)
+            before = metrics.tier_counts()
+            routed = call(g)
             g.check()
-            row = {"digest": _digest(out),
+            after = metrics.tier_counts()
+            del routed
+            kernels = g._ensure_pallas() if gated else g
+            out = call(kernels)
+            again = call(kernels)
+            g.check()
+            row = {"digest": _digest(out), "gated": gated,
+                   "routed": [t for t in after if after[t] > before[t]],
                    "repeat_identical": bool(torch.equal(out, again))}
             del out, again
             for key, t in (("ms", g), ("transport_ms", g._pallas)):
@@ -1676,6 +1737,42 @@ def _rank_actor_cls():
 
             row["device_ops"] = metrics.DEVICE_OPS
             return row
+
+        def crossover(self, group, sizes, seed):
+            """ms of one f32 sum through the group at each size in floats,
+            by each route where every rank holds a card of its own: the
+            group's PALLAS route (the gate lifted) and NCCL (the gate
+            shut), in turns (pallas, nccl, nccl, pallas), PROC_ITERS
+            calls back to back after a barrier each; and the route the
+            reference's gate picks at each size."""
+            from ray_tpu_torch import collective as col
+
+            dev = torch.device("cuda", 0)
+            g = col.get_group(group)
+            gate, out = g.PALLAS_MAX_BYTES, []
+            for n in sizes:
+                gen = torch.Generator(device=dev).manual_seed(seed)
+                x = torch.randn(n, generator=gen, device=dev)
+                ms = {"pallas": [], "nccl": []}
+                for arm in ("pallas", "nccl", "nccl", "pallas"):
+                    g.PALLAS_MAX_BYTES = 1 << 62 if arm == "pallas" else -1
+                    g.allreduce(x)  # this arm's route, warm
+                    col.barrier(group)
+                    torch.cuda.synchronize()
+                    t0, t1 = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                    t0.record()
+                    for _ in range(PROC_ITERS):
+                        g.allreduce(x)
+                    t1.record()
+                    g.check()
+                    ms[arm].append(t0.elapsed_time(t1) / PROC_ITERS)
+                g.PALLAS_MAX_BYTES = gate
+                out.append({"floats": n, "bytes": 4 * n,
+                            "pallas_ms": ms["pallas"], "nccl_ms": ms["nccl"],
+                            "gate_route": ("pallas" if 4 * n <= gate
+                                           else "device")})
+            return out
 
         def tiers(self, group):
             """Which device tiers the group may vote for, and what a forced
@@ -1756,10 +1853,15 @@ def _proc_group(actors, name, **kwargs):
 def phase_collectives_procs(dev):
     """B5-B8 through the per-process HostGroup (transport "pallas"), its
     ranks in actors of their own: every case bit for bit against the plain
-    version, which this process computes from the same seeded inputs;
-    each rank's launches counted in its own process; a withheld rank; the
-    ms of one call beside the bound; the NCCL tier where there are two or
-    more cards, else its vote of 0."""
+    version, which this process computes from the same seeded inputs,
+    through the group where it routes to the kernels (every size where the
+    ranks share a card; up to the 64 KB gate where each holds its own,
+    whose larger unquantized payloads go to NCCL, as the reference's gate
+    sends them, and are checked through the transport alone); each rank's
+    launches counted in its own process; a withheld rank; the ms of one
+    call beside the bound; the NCCL tier and the crossover table (NCCL
+    against the group's PALLAS route, 16 KB to the bucket) where there are
+    two or more cards, else its vote of 0."""
     import ray_tpu_torch
     from ray_tpu_torch.collective.backends import pallas_backend as pb
 
@@ -1798,11 +1900,23 @@ def phase_collectives_procs(dev):
             xs = _ring_inputs(combine, dtype, length, w, dev, gen)
             want = [_digest(t) for t in _plain_of(kind, combine)(xs)]
             del xs
+            gated = got[0]["gated"]
             row = {"kind": kind, "combine": combine, "dtype": str(dtype),
-                   "w": w, "n": n, "length": length,
+                   "w": w, "n": n, "length": length, "gated": gated,
+                   "routed": got[0]["routed"],
                    "bit_identical": [g["digest"] for g in got] == want,
                    "repeat_identical": all(g["repeat_identical"]
-                                           for g in got)}
+                                           for g in got),
+                   # the size gate: a card a rank sends an unquantized
+                   # payload over 64 KB to NCCL; a shared card, and an
+                   # int8 op (NCCL has no int8 wire), keep every size on
+                   # the kernels
+                   "routed_as_the_reference": all(
+                       g["routed"] == (["device"] if gated else ["pallas"])
+                       and g["gated"] == gated for g in got)
+                   and gated == (tiers["device_shaped"]
+                                 and kind != "quantized"
+                                 and length * _elt(dtype) > GATE_BYTES)}
             if "ms" in got[0]:
                 bound_ms, bound_by, basis = _ring_bound(
                     used, kind, length, w, 4)
@@ -1813,7 +1927,8 @@ def phase_collectives_procs(dev):
                            bound_ms=bound_ms, bound_by=bound_by,
                            bound_basis=basis)
             rows.append(row)
-            if not (row["bit_identical"] and row["repeat_identical"]):
+            if not (row["bit_identical"] and row["repeat_identical"]
+                    and row["routed_as_the_reference"]):
                 emit("collectives_procs", failed=row)
                 raise RuntimeError(f"collectives_procs: {row}")
             torch.cuda.empty_cache()
@@ -1839,8 +1954,21 @@ def phase_collectives_procs(dev):
                 r.get("raised_after_s") for r in res[:-1]]}
             if not named:
                 raise RuntimeError(f"withheld {kind} w={w}: {res}")
-        nccl = None
+        nccl = crossover = None
         if tiers["device_shaped"]:
+            cross = ray_tpu_torch.get([a.crossover.remote(
+                name, CROSSOVER_FLOATS, 11) for a in actors], timeout=600)
+            crossover = [{**c, "pallas_ms": [max(r[i]["pallas_ms"][j]
+                                                 for r in cross)
+                                             for j in range(2)],
+                          "nccl_ms": [max(r[i]["nccl_ms"][j] for r in cross)
+                                      for j in range(2)]}
+                         for i, c in enumerate(cross[0])]
+            emit("collectives_procs_crossover", w=w, cards_used=used,
+                 gate_bytes=GATE_BYTES, sizes=crossover,
+                 basis="one f32 sum through the group a rank a card, the "
+                 "slowest rank's, two turns each (pallas, nccl, nccl, "
+                 "pallas)")
             dname = f"nccl{w}"
             _proc_group(actors, dname, transport="device",
                         timeout=RING_TIMEOUT_S * 30)
@@ -1898,7 +2026,7 @@ def phase_collectives_procs(dev):
                "timed": [r for r in rows if "ms" in r],
                "launches_per_rank": launched, "driver_launches": {
                    k: driver[k] for k in RING_COUNTERS},
-               "withheld": withheld, "nccl": nccl}
+               "withheld": withheld, "nccl": nccl, "crossover": crossover}
         emit("collectives_procs", **run)
         runs.append(run)
     for name, kind in (("ring_allreduce", "allreduce"),
@@ -1907,7 +2035,10 @@ def phase_collectives_procs(dev):
                        ("quantized_allreduce", "quantized")):
         row = next(r for r in runs[0]["timed"]
                    if r["kind"] == kind and r["n"] == GPT2_NUMEL)
-        summary[name] = {k: row[k] for k in ("ms", "bound_ms", "copy_ms")}
+        summary[name] = {k: row[k] for k in ("bound_ms", "copy_ms")}
+        # a card a rank sends the bucket to NCCL: the kernel's own ms is
+        # its transport's
+        summary[name]["ms"] = row["transport_ms" if row["gated"] else "ms"]
         summary[name]["basis"] = PROCS_BASIS
     return summary
 
@@ -1951,8 +2082,21 @@ DP_INT8_LOSS_BAND = 0.02
 # each gradient and of all together. The same f32 arithmetic, with the
 # batch mean taken as a mean of two means and the matmuls at other
 # shapes (another summation order), as gpt2_step's f32 kernel check.
-DP_F32_TOL = {"grad": 1e-3, "grads_all": 1e-4}
+# Where each rank holds a card of its own (sharded is not bit for bit
+# with exact there), a sharded=True arm takes the same step: rank 0's
+# span of the averaged gradient (reduce-scattered, divided by w) against
+# the same span of the single-worker gradient, at the all-gradients limit
+# (an un-averaged sum would read w - 1).
+DP_F32_TOL = {"grad": 1e-3, "grads_all": 1e-4, "sharded_span": 1e-4}
 DP_F32_BATCH = 2
+# sharded against exact where each rank holds a card of its own: NCCL's
+# reduce-scatter and allreduce fold in orders of their own, and AdamW's
+# normalised update turns a last-bit difference in a near-zero gradient
+# into a step of its learning rate, so rank 0's parameters after the
+# runs are held by relative L2. Its control must exceed the limit: a
+# sharded run over half the ranks, trained on half the batch (PERF.md
+# section 6 has both readings). Where ranks share a card, bit for bit.
+DP_SHARDED_TOL = 1e-3
 
 
 def gpt2_dp_operator_cls():
@@ -1983,10 +2127,11 @@ def gpt2_dp_operator_cls():
 
 
 def _dp_trainer(params, batch, dtype, optimizer, steps, tf32=True,
-                **kwargs):
+                workers=None, **kwargs):
     from ray_tpu_torch.train import Trainer
 
-    return Trainer(gpt2_dp_operator_cls(), num_workers=dp_workers(),
+    return Trainer(gpt2_dp_operator_cls(),
+                   num_workers=workers or dp_workers(),
                    collective_transport="pallas",
                    resources_per_worker={"GPU": 1},
                    config={"params": params, "batch": batch, "dtype": dtype,
@@ -1999,9 +2144,9 @@ RING_COUNTERS = ("ring_allreduce", "ring_reducescatter", "ring_allgather",
 
 
 # the collective kernels' names in a profiler trace (csrc
-# ring_collectives.cu)
+# ring_collectives.cu, and NCCL's, which carries the bucket a card a rank)
 COLLECTIVE_KERNEL_NAMES = ("direct_reduce", "direct_allgather",
-                           "quantized_allreduce")
+                           "quantized_allreduce", "nccl")
 
 
 def _param_digest(ops):
@@ -2027,6 +2172,13 @@ def _rank0_grads(ops):
             ops[0].model.named_parameters()}
 
 
+def _rank0_shard_grad(ops):
+    """Rank 0's averaged gradient span under sharded_update, and where it
+    lies in the flat bucket."""
+    op = ops[0]
+    return op._param_shard.grad.detach().cpu(), op._shard_lo, op._shard_hi
+
+
 def device_times_us(trace_path):
     """(busy, collective) microseconds of the device in a torch.profiler
     chrome trace: every kernel, memcpy and memset, and the collective
@@ -2046,6 +2198,22 @@ def _dp_run(params, label, **kwargs):
     return _dp_measure(
         _dp_trainer(params, GPT_BATCH, torch.bfloat16, _adamw,
                     WARMUP + DP_STEPS + DP_PROFILE_STEPS, **kwargs), label)
+
+
+def _dp_half_batch_weights(params):
+    """The sharded check's control: a sharded run over half the ranks
+    (ranks 0 to w/2 - 1's tokens, so half the batch), as many steps as a
+    measured run; rank 0's weights."""
+    import ray_tpu_torch
+
+    steps = WARMUP + DP_STEPS + DP_PROFILE_STEPS
+    trainer = _dp_trainer(params, GPT_BATCH, torch.bfloat16, _adamw, steps,
+                          workers=max(1, dp_workers() // 2), sharded=True)
+    trainer.train(num_steps=steps)
+    weights = ray_tpu_torch.get(trainer.workers[0].run.remote(
+        _rank0_flat_params)).to("cuda")
+    trainer.shutdown()
+    return weights
 
 
 def _dp_measure(trainer, label):
@@ -2094,7 +2262,8 @@ def _dp_measure(trainer, label):
         "tier_ops_by_rank": [{k: int(v) for k, v in c.items()
                               if k.endswith("_ops_total")}
                              for c in meta.pop("rank_counts")],
-        "ring_share_of_device_time": (ring / busy if busy else None),
+        "collective_share_of_device_time": (ring / busy if busy
+                                            else None),
         "device_busy_ms_per_step": busy / 1e3 / DP_PROFILE_STEPS,
         "wall_ms_per_step_profiled": (ranks * GPT_BATCH
                                       / profiled["samples_per_s"] * 1e3),
@@ -2109,9 +2278,10 @@ def _dp_measure(trainer, label):
     return fields, launches, weights
 
 
-def _dp_f32_check(dev, params):
+def _dp_f32_check(dev, params, sharded):
     """One float32 DP step's averaged gradient against one single-worker
-    step at the combined batch, from the same weights (TF32 off)."""
+    step at the combined batch, from the same weights (TF32 off); with
+    `sharded`, the same for rank 0's span of a sharded=True step."""
     from ray_tpu_torch.models import transformer
 
     import ray_tpu_torch
@@ -2126,6 +2296,14 @@ def _dp_f32_check(dev, params):
     dp = {n: g.to(dev) for n, g in ray_tpu_torch.get(
         trainer.workers[0].run.remote(_rank0_grads)).items()}
     trainer.shutdown()
+    if sharded:
+        trainer = _dp_trainer(params, DP_F32_BATCH, torch.float32,
+                              lambda ps: torch.optim.SGD(ps, lr=0.0), 1,
+                              tf32=False, sharded=True)
+        trainer.train(num_steps=1)
+        span, lo, hi = ray_tpu_torch.get(trainer.workers[0].run.remote(
+            _rank0_shard_grad))
+        trainer.shutdown()
     cfg = gpt2_config(torch.float32)
     model = transformer.params_from_jax(params, cfg).to(dev)
     tokens = torch.cat([_gpt_tokens(dev, DP_F32_BATCH, cfg, seed=10 + r)
@@ -2136,6 +2314,11 @@ def _dp_f32_check(dev, params):
             "grads_all": _rel_l2(torch.cat([g.flatten() for g in dp.values()]),
                                  torch.cat([g.flatten()
                                             for g in one.values()]))}
+    if sharded:
+        flat = torch.cat([g.flatten() for g in one.values()])
+        flat = torch.cat([flat, flat.new_zeros(max(0, hi - flat.numel()))])
+        errs["sharded_span"] = _rel_l2(span.to(dev), flat[lo:hi])
+        del flat, span
     worst = max(one, key=lambda n: _rel_l2(dp[n], one[n]))
     del model, dp, one
     torch.cuda.empty_cache()
@@ -2160,10 +2343,18 @@ def phase_train_gpt2_dp(dev):
         raise RuntimeError(f"GPT-2 has {numel} parameters, not {GPT2_NUMEL}")
     n_ln, n_flash = gpt2_launches_per_step(cfg)
     runs, total = {}, collections.Counter()
-    # B8 is w + 1 phase launches a call across processes
+    # B8 is w + 1 phase launches a call across processes. A card a rank:
+    # the size gate sends every unquantized bucket to the DEVICE tier
+    # (NCCL), so B5-B7 do not launch there and the device tier counts the
+    # ops; the int8 bucket stays on B8 (NCCL has no int8 wire)
+    own_cards = torch.cuda.device_count() > 1
     want_ring = {"exact": {"ring_allreduce": 1},
                  "int8": {"quantized_allreduce": dp_workers() + 1},
                  "sharded": {"ring_reducescatter": 1, "ring_allgather": 1}}
+    want_device = {"exact": 0, "int8": 0, "sharded": 0}
+    if own_cards:
+        want_ring.update(exact={}, sharded={})
+        want_device.update(exact=1, sharded=2)
     weights = {}
     for label, kwargs in (("exact", {}), ("int8", {"quantize": "int8"}),
                           ("sharded", {"sharded": True})):
@@ -2177,6 +2368,9 @@ def phase_train_gpt2_dp(dev):
               and all(c[k] == DP_STEPS * want_ring[label].get(k, 0)
                       for c in fields["ring_launches_by_rank"]
                       for k in RING_COUNTERS)
+              and all(c["collective.device_ops_total"]
+                      == DP_STEPS * want_device[label]
+                      for c in fields["tier_ops_by_rank"])
               and fields["distinct_rank_processes"]
               and per["layernorm"] == n_ln
               and per["flash_attn_fwd"] == n_flash
@@ -2191,26 +2385,44 @@ def phase_train_gpt2_dp(dev):
     saved = db._qring_saved_bytes(db._qring_pad(GPT2_NUMEL, w), w,
                                   torch.float32, "sum")
     diff = (weights["sharded"] - weights["exact"]).abs()
+    half = _dp_half_batch_weights(params) if own_cards else None
     checks = {
+        "bucket_route": ({"exact": "device (NCCL)", "int8": "pallas (B8)",
+                          "sharded": "device (NCCL)"} if own_cards
+                         else "pallas"),
         "sharded_bit_identical_to_exact": bool(
             torch.equal(weights["sharded"], weights["exact"])),
         "sharded_max_abs_diff": float(diff.max()),
+        "sharded_params_rel_l2": _rel_l2(weights["sharded"],
+                                         weights["exact"]),
+        "sharded_params_tol": DP_SHARDED_TOL if own_cards else 0.0,
+        "half_batch_params_rel_l2": (None if half is None else
+                                     _rel_l2(half, weights["exact"])),
+        "sharded_loss_rel_diff": max(
+            abs(runs["sharded"][k] - exact[k]) / abs(exact[k])
+            for k in ("train_loss", "last_train_loss")),
         "int8_loss_rel_diff": max(abs(int8[k] - exact[k]) / abs(exact[k])
                                   for k in ("train_loss", "last_train_loss")),
         "int8_loss_band": DP_INT8_LOSS_BAND,
         "int8_saved_bytes_per_rank_step": int8[
             "quant_saved_bytes_per_rank_step"],
         "qring_saved_bytes": saved,
-        "f32": _dp_f32_check(dev, params)}
+        "f32": _dp_f32_check(dev, params, sharded=own_cards)}
     emit("train_gpt2_dp", checks=checks)
     f32 = checks["f32"]
-    if not (checks["sharded_bit_identical_to_exact"]
+    del diff, half, weights
+    torch.cuda.empty_cache()
+    # a card a rank: sharded within DP_SHARDED_TOL of exact, and the
+    # half-batch control beyond it
+    if not ((checks["sharded_params_rel_l2"] <= DP_SHARDED_TOL
+             < checks["half_batch_params_rel_l2"] if own_cards
+             else checks["sharded_bit_identical_to_exact"])
             and checks["int8_loss_rel_diff"] <= DP_INT8_LOSS_BAND
             and checks["int8_saved_bytes_per_rank_step"] == saved
-            and all(f32["errors"][k] <= DP_F32_TOL[k] for k in DP_F32_TOL)):
+            and all(err <= DP_F32_TOL[k]
+                    for k, err in f32["errors"].items())):
         raise RuntimeError(f"train_gpt2_dp checks: {checks}")
-    return {k: total[k] for k in want_ring["exact"].keys()
-            | want_ring["int8"].keys() | want_ring["sharded"].keys()}
+    return {k: total[k] for k in RING_COUNTERS}
 
 
 # train_gpt2_elastic: steps an epoch, epochs of the control, and the
@@ -2399,8 +2611,12 @@ def phase_train_gpt2_elastic(dev, smi):
     emit("train_gpt2_elastic", **fields)
     steps = ELASTIC_STEPS
 
+    # a card a rank: the size gate sends the bucket to NCCL
+    kernels = torch.cuda.device_count() == 1
+
     def launched(gen, epochs):
-        want = [epochs * steps] * 2 if gen["world"] > 1 else [0, 0]
+        want = ([epochs * steps] * 2 if gen["world"] > 1 and kernels
+                else [0, 0])
         return all(c == want for c in gen["b6_b7_by_rank"])
 
     ok = (control_gen["generation"] == 1
@@ -2428,6 +2644,398 @@ def phase_train_gpt2_elastic(dev, smi):
         raise RuntimeError(f"train_gpt2_elastic: {fields}")
 
 
+# train_ingest: ResNet-50 as phase train runs it, fed by a DatasetShard
+# actor through the object store at prefetch depth 2, against an
+# in-memory control of the same batches, a distinct one each step (so a
+# dropped, repeated or reordered batch changes the losses). cuDNN is
+# deterministic in both arms (benchmark off), and the two arms' losses
+# are held bit for bit.
+INGEST_DEPTH = 2
+
+
+def _host_batches():
+    """ResNet-50's synthetic batches, made on the host from a seed: STEPS
+    of them, step i's the seeded images rolled by i rows with labels of
+    seed i, the bytes both arms of train_ingest train on (every epoch
+    replays them from the first)."""
+    gen = torch.Generator().manual_seed(0)
+    images = torch.randn((BATCH, HW, HW, 3), generator=gen).to(
+        torch.bfloat16)
+    return [(images.roll(i, 0), torch.randint(
+        0, 1000, (BATCH,), generator=torch.Generator().manual_seed(i)))
+        for i in range(STEPS)]
+
+
+def _ingest_dataset(shard_index, num_shards, config):
+    """The DatasetShard's source: the host batches."""
+    return _host_batches()
+
+
+def _ingest_operator_cls():
+    from ray_tpu_torch.models import resnet
+    from ray_tpu_torch.train import TrainingOperator
+
+    class Op(TrainingOperator):
+        def setup(self, config):
+            from torch.backends import cudnn
+
+            cudnn.benchmark = False
+            cudnn.deterministic = True
+            model = resnet.ResNet(resnet.resnet50(bn_mode="kernel"), seed=0)
+            self.register(
+                model=model, optimizer=_sgd,
+                loss_fn=lambda m, b: resnet.loss_fn(m, b[0], b[1]),
+                to_tree=resnet.params_to_jax,
+                from_tree=resnet.load_jax_params)
+            if config.get("in_memory"):
+                self.register_data(train_loader=[
+                    (images.to(self.device), labels.to(self.device))
+                    for images, labels in _host_batches()])
+
+    return Op
+
+
+def _hist_delta(after, before):
+    """The observations a histogram took between two snapshots."""
+    if not before:
+        return after
+    return {**after, "count": after["count"] - before["count"],
+            "counts": [a - b for a, b in zip(after["counts"],
+                                             before["counts"])]}
+
+
+def phase_train_ingest(dev):
+    """ResNet-50 through Trainer(ingest=IngestSpec(depth 2)): img/s beside
+    an in-memory control's (both cuDNN-deterministic), phase train's and
+    the raw loop's; train.ingest_wait_s p50 and p99 of the measured epoch,
+    read from the worker; the worker's B1 launches; the losses of the two
+    arms."""
+    import ray_tpu_torch
+    from ray_tpu_torch.train import Trainer
+    from ray_tpu_torch.train.ingest import IngestSpec, hist_quantile
+
+    arms, launches = {}, 0
+    for label, kwargs in (
+            ("ingest", {"config": {"steps": STEPS}, "ingest": IngestSpec(
+                _ingest_dataset, prefetch_depth=INGEST_DEPTH)}),
+            ("in_memory", {"config": {"steps": STEPS, "in_memory": True}})):
+        trainer = Trainer(_ingest_operator_cls(), num_workers=1,
+                          resources_per_worker={"GPU": 1}, **kwargs)
+        worker = trainer.workers[0]
+        warm = trainer.train(num_steps=WARMUP)
+        before = ray_tpu_torch.get(
+            worker.read_metric.remote("train.ingest_wait_s"))
+        step_before = ray_tpu_torch.get(
+            worker.read_metric.remote("train.step_s"))
+        result, counts, meta = measured_train(trainer, STEPS)
+        wait = _hist_delta(ray_tpu_torch.get(
+            worker.read_metric.remote("train.ingest_wait_s")), before)
+        step = _hist_delta(ray_tpu_torch.get(
+            worker.read_metric.remote("train.step_s")), step_before)
+        actors = len(trainer._ingest_actors)
+        trainer.shutdown()
+        del trainer
+        arms[label] = {
+            "img_s": result["samples_per_s"], "ingest_actors": actors,
+            "losses": [warm["train_loss"], warm["last_train_loss"],
+                       result["train_loss"], result["last_train_loss"]],
+            "bn_bwd_sums_launches": int(counts["bn_bwd_sums"]),
+            "step_s_p50": hist_quantile(step, 0.5),
+            "step_s_p99": hist_quantile(step, 0.99),
+            "ingest_wait_count": wait["count"] if wait else 0,
+            "ingest_wait_s_p50": hist_quantile(wait, 0.5) if wait else None,
+            "ingest_wait_s_p99": hist_quantile(wait, 0.99) if wait else None,
+            "max_memory_allocated": meta["max_memory_allocated"],
+            "driver_wall_s_per_train": meta["driver_wall_s_per_train"]}
+        if label == "ingest":
+            launches = int(counts["bn_bwd_sums"])
+        torch.cuda.empty_cache()
+    ing, mem = arms["ingest"], arms["in_memory"]
+    fields = {
+        "img_s": ing["img_s"], "img_s_in_memory": mem["img_s"],
+        "ingest_over_in_memory": ing["img_s"] / mem["img_s"],
+        "train_img_s": TRAIN_FIELDS.get("img_s"),
+        "raw_img_s": TRAIN_FIELDS.get("raw_img_s"),
+        "batch_bytes": BATCH * HW * HW * 3 * 2 + BATCH * 8,
+        "prefetch_depth": INGEST_DEPTH, "steps": STEPS,
+        "losses_bit_identical": ing["losses"] == mem["losses"],
+        "distinct_batches": STEPS,
+        "cudnn": "deterministic, benchmark off (both arms)", "arms": arms}
+    emit("train_ingest", **fields)
+    ok = (launches == 53 * STEPS and ing["ingest_actors"] == 1
+          and ing["ingest_wait_count"] == STEPS
+          and fields["losses_bit_identical"]
+          and all(math.isfinite(v) for v in ing["losses"]))
+    if not ok:
+        raise RuntimeError(f"train_ingest: {fields}")
+
+
+# train_gpt2_mesh: GPT-2 124M under config={"multihost": True}, a card a
+# rank, 12 x 1024 tokens a rank: mesh_mode="fsdp" (the table's (w, 1),
+# data parallel) and an explicit (1, w) ('data','fsdp') mesh whose
+# parameters are sharded; MESH_WARMUP steps, then MESH_WINDOWS timed
+# epochs of MESH_STEPS steps each, the parameters compared after them
+# (relative L2, MESH_TOL: NCCL's allreduce and reduce-scatter fold in
+# orders of their own, and AdamW's normalised update turns a last-bit
+# difference in a near-zero gradient into a step of its learning rate).
+# Its control must exceed the limit: the first run's parameters one step
+# later (PERF.md section 6 has both readings).
+MESH_WARMUP, MESH_STEPS, MESH_WINDOWS, MESH_TOL = 1, 4, 2, 1e-3
+# ProcessMeshGroup's payload: floats a rank, divisible by 2, 3 and 4
+MESH_COLL_N = 12 << 16
+
+
+def gpt2_mesh_operator_cls():
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.train import TrainingOperator
+
+    class Op(TrainingOperator):
+        def setup(self, config):
+            from torch.backends import cudnn
+            from torch.distributed.device_mesh import DeviceMesh
+
+            from ray_tpu_torch.parallel import mesh as meshlib
+
+            cudnn.benchmark = True
+            cfg = gpt2_config()
+            model = transformer.GPT(cfg, seed=0)
+            kw = {}
+            if config.get("explicit"):
+                w = self.world_size
+                mesh = DeviceMesh("cuda", torch.arange(w).reshape(1, w),
+                                  mesh_dim_names=("data", "fsdp"))
+                kw = dict(mesh=mesh, param_spec=meshlib.fsdp_param_specs(
+                    dict(model.named_parameters()), mesh),
+                    batch_spec=meshlib.P(("data", "fsdp")))
+            self.register(
+                model=model, optimizer=_adamw, loss_fn=transformer.loss_fn,
+                to_tree=lambda m: (transformer.params_to_jax(m), None),
+                from_tree=lambda m, params, _: transformer.load_jax_params(
+                    m, params), **kw)
+            self.register_data(train_loader=_Repeat(
+                _gpt_tokens(self.device, GPT_BATCH, cfg,
+                            seed=10 + self.world_rank),
+                MESH_STEPS))
+
+    return Op
+
+
+def _layout(ops):
+    """(elements sharded, elements in all) of a rank's mesh layout."""
+    entries = ops[0]._layout._entries
+    return (sum(math.prod(shape) for _, shape, _, sh in entries
+                if sh is not None),
+            sum(math.prod(shape) for _, shape, _, _ in entries))
+
+
+def _flat_state(trainer):
+    """The trainer's parameters (state_dict: a collective on every rank of
+    a mesh), flattened in name order on the host."""
+    params = trainer.state_dict()["params"]
+    return torch.cat([torch.from_numpy(a).reshape(-1) for a in (
+        [params[k] for k in sorted(params) if k != "blocks"]
+        + [params["blocks"][k] for k in sorted(params["blocks"])])])
+
+
+def _mesh_run(label, ranks, control=False, **kwargs):
+    """One mesh trainer: warm-up, MESH_WINDOWS timed epochs; its fields
+    and its parameters, and with `control` its parameters one step later
+    too."""
+    import ray_tpu_torch
+    from ray_tpu_torch.train import Trainer
+
+    cfg = gpt2_config()
+    trainer = Trainer(gpt2_mesh_operator_cls(), num_workers=ranks,
+                      resources_per_worker={"GPU": 1}, **kwargs)
+    layout = ray_tpu_torch.get(trainer.workers[0].run.remote(_layout))
+    trainer.train(num_steps=MESH_WARMUP)
+    windows = [measured_train(trainer, MESH_STEPS)
+               for _ in range(MESH_WINDOWS)]
+    peaks = ray_tpu_torch.get([w.run.remote(_worker_peak)
+                               for w in trainer.workers])
+    flat = _flat_state(trainer)
+    later = None
+    if control:
+        trainer.train(num_steps=1)
+        later = _flat_state(trainer)
+    pids = list(trainer._pids)
+    trainer.shutdown()
+    result = windows[-1][0]
+    fields = {"run": label, "ranks": ranks, "rank_pids": pids,
+              "tokens_s_by_window": [r["samples_per_s"] * cfg.max_seq
+                                     for r, _, _ in windows],
+              "tokens_per_rank_step": GPT_BATCH * cfg.max_seq,
+              "steps": MESH_STEPS, "windows": MESH_WINDOWS,
+              "sharded_elements": layout[0],
+              "elements": layout[1], "peak_memory_by_rank": peaks,
+              "launches_by_rank": [{k: int(c[k]) for k in (
+                  "layernorm", "flash_attn_fwd", "flash_dense_routes")}
+                  for _, _, meta in windows for c in meta["rank_counts"]],
+              "train_loss": result["train_loss"],
+              "last_train_loss": result["last_train_loss"],
+              "driver_wall_s_per_train": [meta["driver_wall_s_per_train"]
+                                          for _, _, meta in windows]}
+    return fields, flat, later
+
+
+class _MeshRank:
+    """A process of a multihost runtime (NCCL, its own card) with a
+    collective group of backend "xla" over it: a ProcessMeshGroup."""
+
+    def __init__(self, name, w, rank):
+        from ray_tpu_torch import collective as col
+        from ray_tpu_torch.parallel import multihost
+
+        multihost.initialize(name, w, rank)
+        col.init_collective_group(w, rank, backend="xla",
+                                  group_name=name + "_x")
+        self.name, self.w, self.rank = name, w, rank
+
+    def run(self, seed):
+        """Each op through the group on this rank's input of the w made
+        from the seed (as the driver makes them): the outputs' digests."""
+        from ray_tpu_torch import collective as col
+        from ray_tpu_torch.collective import ReduceOp
+
+        g = col.get_group(self.name + "_x")
+        dev = torch.device("cuda", 0)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        ints, floats = _mesh_coll_inputs(self.w, dev, gen)
+        i, f = ints[self.rank], floats[self.rank]
+        out = {"group": type(g).__name__,
+               "sum": _digest(g.allreduce(i)),
+               "max": _digest(g.allreduce(f, ReduceOp.MAX)),
+               "broadcast": _digest(g.broadcast(f, 1)),
+               "allgather": _digest(torch.stack(g.allgather(f))),
+               "reducescatter": _digest(g.reducescatter(i)),
+               "shift_right": _digest(g.shift_right(f))}
+        torch.cuda.synchronize()
+        return out
+
+
+def _mesh_coll_inputs(w, dev, gen):
+    """Every rank's int32 and float32 payload: integer sums are exact in
+    any order, and MAX, the allgather, the broadcast and the shift move
+    bytes."""
+    ints = [torch.randint(-1000, 1000, (MESH_COLL_N,), generator=gen,
+                          device=dev, dtype=torch.int32) for _ in range(w)]
+    floats = [torch.randn(MESH_COLL_N, generator=gen, device=dev)
+              for _ in range(w)]
+    return ints, floats
+
+
+def _in_process_shift(dev):
+    """shift_right on the in-process group (backend "xla": every rank in
+    this process, rank r on cuda:(r % cards), the allgather kernel B7
+    carrying it) at w = 2, bit for bit."""
+    import uuid
+
+    from ray_tpu_torch import collective as col
+
+    name = f"shift_{uuid.uuid4().hex[:6]}"
+    hs = [col.init_collective_group(2, r, backend="xla", group_name=name)
+          for r in range(2)]
+    try:
+        xs = [torch.randn(MESH_COLL_N, device=h.device,
+                          generator=torch.Generator(device=h.device)
+                          .manual_seed(20 + r)) for r, h in enumerate(hs)]
+        torch.cuda.synchronize()
+        outs = []
+        for h, x in zip(hs, xs):
+            with torch.cuda.stream(h.stream):
+                outs.append(h.shift_right(x))
+        for h in hs:
+            h.check()
+        return all(torch.equal(o.cpu(), xs[(r - 1) % 2].cpu())
+                   for r, o in enumerate(outs))
+    finally:
+        col.destroy_collective_group(name)
+
+
+def phase_train_gpt2_mesh(dev):
+    """GPT-2 124M under config={"multihost": True} on w = min(4, cards)
+    ranks, a card a rank: (a) mesh_mode="fsdp", (b) an explicit (1, w)
+    mesh with fsdp_param_specs. Tokens/s and peak memory a rank of both,
+    the relative L2 of (b)'s parameters against (a)'s, B2 and B3 launched
+    in every rank's process; ProcessMeshGroup's ops bit for bit against
+    their plain versions; shift_right on the in-process group. On one card
+    one worker with mesh_mode="fsdp" (a (1, 1) mesh), and a multihost
+    trainer of two ranks must raise."""
+    import uuid
+
+    import ray_tpu_torch
+    from ray_tpu_torch.collective.backends import pallas_backend as pb
+    from ray_tpu_torch.train import Trainer
+
+    cfg = gpt2_config()
+    n_ln, n_flash = gpt2_launches_per_step(cfg)
+    cards = torch.cuda.device_count()
+    w = min(4, cards)
+    fields = {"cards": cards, "in_process_shift_bit_identical":
+              _in_process_shift(dev)}
+    if w == 1:
+        run, _, _ = _mesh_run("fsdp", 1, mesh_mode="fsdp")
+        runs = [run]
+        try:
+            Trainer(gpt2_mesh_operator_cls(), num_workers=2,
+                    mesh_mode="fsdp", config={"multihost": True},
+                    resources_per_worker={"GPU": 1})
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        fields.update(mesh_across_ranks="needs a card a rank: NCCL refuses "
+                      "two ranks on one card", multihost_refused=refused)
+        ok = bool(refused and "NCCL refuses" in refused)
+    else:
+        a, pa, pa_later = _mesh_run("fsdp", w, control=True,
+                                    mesh_mode="fsdp",
+                                    config={"multihost": True})
+        torch.cuda.empty_cache()
+        b, pb_, _ = _mesh_run("explicit_1xw", w,
+                              config={"multihost": True, "explicit": True})
+        runs = [a, b]
+        rel = _rel_l2(pb_, pa)
+        control = _rel_l2(pa_later, pa)
+        name = f"mesh_{uuid.uuid4().hex[:6]}"
+        ranks = [ray_tpu_torch.remote(num_gpus=1)(_MeshRank).remote(
+            name, w, r) for r in range(w)]
+        got = ray_tpu_torch.get([r.run.remote(5) for r in ranks],
+                                timeout=300)
+        for r in ranks:
+            ray_tpu_torch.kill(r)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        ints, floats = _mesh_coll_inputs(w, dev, gen)
+        want = {"sum": [_digest(t) for t in pb.allreduce_plain(ints, "sum")],
+                "max": [_digest(t) for t in pb.allreduce_plain(floats,
+                                                               "max")],
+                "broadcast": [_digest(floats[1])] * w,
+                "allgather": [_digest(torch.stack(floats))] * w,
+                "reducescatter": [_digest(t)
+                                  for t in pb.reducescatter_plain(ints)],
+                "shift_right": [_digest(floats[(r - 1) % w])
+                                for r in range(w)]}
+        coll = {op: [g[op] for g in got] == digests
+                for op, digests in want.items()}
+        fields.update(params_rel_l2=rel, params_tol=MESH_TOL,
+                      one_step_later_rel_l2=control,
+                      process_mesh_group=[g["group"] for g in got],
+                      process_mesh_bit_identical=coll)
+        ok = (rel <= MESH_TOL < control and all(coll.values())
+              and all(g["group"] == "ProcessMeshGroup" for g in got)
+              and b["sharded_elements"] > 0)
+    fields["runs"] = runs
+    emit("train_gpt2_mesh", **fields)
+    ok = (ok and fields["in_process_shift_bit_identical"]
+          and all(c == {"layernorm": n_ln * MESH_STEPS,
+                        "flash_attn_fwd": n_flash * MESH_STEPS,
+                        "flash_dense_routes": 0}
+                  for run in runs for c in run["launches_by_rank"])
+          and all(math.isfinite(run[k]) for run in runs
+                  for k in ("train_loss", "last_train_loss")))
+    if not ok:
+        raise RuntimeError(f"train_gpt2_mesh: {fields}")
+
+
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "bn_bwd_sums": ("ray_tpu_torch/ops/csrc/bn_bwd_sums.cu",
                     "ray_tpu/ops/batchnorm.py:43"),
@@ -2450,8 +3058,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
 
 
 # the phases that need the runtime (phase_runtime starts it)
-RUNTIME_PHASES = ("runtime", "collectives_procs", "train", "train_gpt2",
-                  "train_gpt2_dp", "train_gpt2_elastic")
+RUNTIME_PHASES = ("runtime", "collectives_procs", "train", "train_ingest",
+                  "train_gpt2", "train_gpt2_dp", "train_gpt2_mesh",
+                  "train_gpt2_elastic")
 
 
 def main():
@@ -2475,36 +3084,55 @@ def main():
     import ray_tpu_torch
 
     dev = torch.device("cuda", 0)
-    smi = phase_device()
-    phase_build()
+    started = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        """fn(*args), its seconds kept under name (printed at the end)."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = time.perf_counter() - t0
+
+    smi = timed("device", phase_device)
+    timed("build", phase_build)
     summary, launches = collections.defaultdict(dict), {}
     if run("kernels"):
-        summary["bn_bwd_sums"] = phase_kernels(dev)
-        summary.update(phase_transformer_kernels(dev))
+        summary["bn_bwd_sums"] = timed("kernels", phase_kernels, dev)
+        summary.update(timed("transformer_kernels",
+                             phase_transformer_kernels, dev))
     if run("collectives"):
-        summary.update(phase_collectives(dev))
+        summary.update(timed("collectives", phase_collectives, dev))
     if run("resnet50_step"):
-        phase_resnet50_step(dev)
+        timed("resnet50_step", phase_resnet50_step, dev)
     if run("gpt2_step"):
-        phase_gpt2_step(dev)
+        timed("gpt2_step", phase_gpt2_step, dev)
     torch.cuda.empty_cache()
     try:
         if any(run(p) for p in RUNTIME_PHASES):
-            phase_runtime(dev, smi)
+            timed("runtime", phase_runtime, dev, smi)
         if run("collectives_procs"):
             # B5-B8 as the main path runs them: a rank a process
-            for name, row in phase_collectives_procs(dev).items():
+            for name, row in timed("collectives_procs",
+                                   phase_collectives_procs, dev).items():
                 summary[name].update(row)
         if run("train"):
-            launches["bn_bwd_sums"] = phase_train(dev)
+            launches["bn_bwd_sums"] = timed("train", phase_train, dev)
+        if run("train_ingest"):
+            timed("train_ingest", phase_train_ingest, dev)
         if run("train_gpt2"):
-            launches.update(phase_train_gpt2(dev))
+            launches.update(timed("train_gpt2", phase_train_gpt2, dev))
         if run("train_gpt2_dp"):
-            launches.update(phase_train_gpt2_dp(dev))
+            launches.update(timed("train_gpt2_dp", phase_train_gpt2_dp,
+                                  dev))
+        if run("train_gpt2_mesh"):
+            timed("train_gpt2_mesh", phase_train_gpt2_mesh, dev)
         if run("train_gpt2_elastic"):
-            phase_train_gpt2_elastic(dev, smi)
+            timed("train_gpt2_elastic", phase_train_gpt2_elastic, dev, smi)
     finally:
         ray_tpu_torch.shutdown()
+    emit("phase_seconds", total=time.perf_counter() - started, **seconds)
     print(smi)
     if phases is not None:
         return 0

@@ -61,6 +61,12 @@ class Config:
     # --- fault tolerance ---
     task_max_retries: ClassVar[int] = 3
 
+    # --- training ---
+    # Batches each train worker keeps in flight against its DatasetShard
+    # ingest actor (train/ingest.py). 2 = double buffering: the next batch
+    # crosses the object store while the current step computes.
+    train_ingest_prefetch_depth: ClassVar[int] = 2
+
     # Address the node's services listen on: loopback, one machine.
     node_ip_address: ClassVar[str] = "127.0.0.1"
     bind_host: ClassVar[str] = "127.0.0.1"

@@ -1,5 +1,5 @@
-"""Process-local metrics: counters and histograms (reference:
-src/ray/stats/metric.h Count/Histogram + metric_defs.cc).
+"""Process-local metrics: counters, gauges and histograms (reference:
+src/ray/stats/metric.h Count/Gauge/Histogram + metric_defs.cc).
 
 Each runtime process keeps one registry. A process reads its own
 (`snapshot()`); a Trainer reads its worker's through
@@ -48,6 +48,27 @@ class Count(Metric):
 
     def _delegate_to(self, existing):
         self.inc = existing.inc
+        self.snapshot = existing.snapshot
+
+
+class Gauge(Metric):
+    """Last-set value (reference: metric.h Gauge)."""
+
+    def __init__(self, name: str, description: str = ""):
+        self._value = 0.0
+        self._lock = threading.Lock()
+        super().__init__(name, description)
+
+    def set(self, value: float):
+        with self._lock:
+            self._value = float(value)
+
+    def snapshot(self):
+        with self._lock:
+            return {"type": "gauge", "value": self._value}
+
+    def _delegate_to(self, existing):
+        self.set = existing.set
         self.snapshot = existing.snapshot
 
 

@@ -212,10 +212,19 @@ class GroupSemantics:
         mine = arr if rank == src_rank else torch.zeros_like(arr)
         return self.allreduce(rank, mine, ReduceOp.SUM)
 
-    def shift_right(self, rank: int, arr):
-        raise NotImplementedError(
-            "shift_right (the XLA tier's ring permute) is not ported: "
-            "ROADMAP.md A5")
+    def shift_right(self, rank: int, arr: torch.Tensor):
+        """Ring permute (xla_backend.py:192, :354): rank r's tensor moves to
+        rank (r + 1) % w, so the caller gets rank (r - 1) % w's. An ops
+        object with a point-to-point `shift` sends it there; the fused
+        kernels carry it as an allgather of which the rank keeps its left
+        neighbour's row."""
+        shape, n = tuple(arr.shape), arr.numel()
+        shift = getattr(self._ops, "shift", None)
+        if shift is not None:
+            return shift(rank, arr.reshape(-1).contiguous()).reshape(shape)
+        x = _pad(arr.reshape(-1), _bucket(n), arr.dtype)
+        rows = self._ops.allgather(rank, x)  # [w, B]
+        return rows[(rank - 1) % self.world_size, :n].reshape(shape)
 
 
 # ---------------------------------------------------------------------------
@@ -291,6 +300,12 @@ class _ProcessGroupOps:
         for work in works:
             self._wait(work)
         return got
+
+    def shift(self, rank: int, x: torch.Tensor) -> torch.Tensor:
+        """The left neighbour's x (the ring permute of shift_right)."""
+        if self.world == 1:
+            return x.clone()
+        return self._shift([x])[0]
 
     def allreduce_quantized(self, rank: int, x: torch.Tensor,
                             op) -> torch.Tensor:
@@ -372,6 +387,10 @@ class DeviceTransport:
                       quantize=None):
         return self._run(self._sem.reducescatter, arr, op, quantize=quantize)
 
+    def shift_right(self, arr):
+        """Rank r's tensor to rank (r + 1) % w; returns rank (r - 1) % w's."""
+        return self._run(self._sem.shift_right, arr)
+
     def broadcast(self, arr, src_rank: int = 0):
         self._counted()
         n = arr.numel()
@@ -386,3 +405,81 @@ class DeviceTransport:
 
     def destroy(self):
         self._ops.close()
+
+
+class ProcessMeshGroup:
+    """Backend "xla" across actor PROCESSES (reference:
+    xla_backend.py:575-628): N processes joined one multihost runtime
+    (parallel/multihost.initialize) are one collective rank each, and every
+    op goes to the DEVICE tier over the runtime's default process group
+    (NCCL between cards, gloo on the CPU), with no per-op vote and never
+    through the HOST hub. Payloads are tensors (the result on the payload's
+    device) or numpy arrays (a numpy result)."""
+
+    def __init__(self, group_name: str, world_size: int, rank: int,
+                 quantize=None):
+        import torch.distributed as dist
+
+        self.group_name = group_name
+        self.world_size = world_size
+        self.rank = rank
+        self.quantize = normalize_quantize(quantize)
+        pg = dist.distributed_c10d._get_default_group()
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if dist.get_backend() == "nccl" else torch.device("cpu"))
+        self.transport = DeviceTransport.over(pg, world_size, rank, device)
+
+    def _q(self, quantize):
+        return self.quantize if quantize is None else quantize
+
+    @staticmethod
+    def _call(fn, arr, *args, **kwargs):
+        if isinstance(arr, torch.Tensor):
+            return fn(arr, *args, **kwargs)
+        import numpy as np
+
+        out = fn(torch.from_numpy(np.ascontiguousarray(arr)), *args,
+                 **kwargs)
+        if isinstance(out, list):
+            return [o.numpy() for o in out]
+        return out.numpy()
+
+    def allreduce(self, arr, op: ReduceOp = ReduceOp.SUM, quantize=None):
+        return self._call(self.transport.allreduce, arr, op,
+                          quantize=self._q(quantize))
+
+    def reduce(self, arr, dst_rank: int = 0, op: ReduceOp = ReduceOp.SUM,
+               quantize=None):
+        out = self.allreduce(arr, op, quantize=quantize)
+        return out if self.rank == dst_rank else arr
+
+    def broadcast(self, arr, src_rank: int = 0):
+        return self._call(self.transport.broadcast, arr, src_rank)
+
+    def allgather(self, arr) -> list:
+        return self._call(self.transport.allgather, arr)
+
+    def reducescatter(self, arr, op: ReduceOp = ReduceOp.SUM,
+                      quantize=None):
+        return self._call(self.transport.reducescatter, arr, op,
+                          quantize=self._q(quantize))
+
+    def shift_right(self, arr):
+        return self._call(self.transport.shift_right, arr)
+
+    def barrier(self):
+        self.allreduce(torch.zeros(1))
+
+    def send(self, arr, dst_rank: int, tag: int = 0):
+        raise NotImplementedError(
+            "point-to-point ops are HOST-backend only; the global mesh "
+            "expresses transfers as collectives")
+
+    recv = send
+
+    def destroy(self):
+        self.transport.destroy()
+
+
+# the reference's continuity alias
+GlobalMeshGroup = ProcessMeshGroup

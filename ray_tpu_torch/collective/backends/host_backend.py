@@ -22,10 +22,19 @@ failure:
 pallas — the fused ring kernels (backends/pallas_backend.py), when every
         rank holds a CUDA card (shared or its own) and a CUDA payload of
         a built instance. The peers' buffers are mapped through CUDA IPC.
-        Every payload size goes here: the reference's 64 KB ceiling
-        (`PALLAS_MAX_BYTES`, host_backend.py:567) and its crossover on
-        the card are ROADMAP.md A9, and a ceiling copied from the TPU
-        would take the ring kernels off the data-parallel path.
+        The reference's size gate holds where every rank holds a card of
+        its own: an op above `PALLAS_MAX_BYTES` (64 KB, from the same
+        environment variable) skips the vote and falls through to the
+        device tier, NCCL, and a forced "pallas" pin is device-like there
+        (host_backend.py:567-568, :789-794). Two cases are the port's
+        own decision. Where ranks share a card every size stays here:
+        NCCL refuses two ranks on one card, and the host tiers would copy
+        every CUDA payload through the host; a TPU chip is never shared
+        between processes, so the reference has no such case. A quantized
+        op (int8 wire) stays here at every size too: NCCL has no int8
+        wire, so the device tier's int8 ring is plain PyTorch over
+        point-to-point sends, several times slower than the int8 kernel
+        (PERF.md section 6).
 device — a torch.distributed process group of the group's own
         (parallel/multihost.py; backends/device_backend.py): NCCL when
         every rank holds a card of its own (NCCL refuses two ranks on one
@@ -291,6 +300,12 @@ class HostGroup:
 
     RING_MIN_BYTES = 1 << 16
     _PIPE_BYTES = 1 << 18  # ring pipeline slice: reduce(k) overlaps recv(k+1)
+    # PALLAS tier size ceiling where every rank holds a card of its own:
+    # larger unquantized payloads fall through to DEVICE (NCCL), the
+    # bandwidth shape.
+    # Group-uniform by the collective contract (same-geometry payloads).
+    PALLAS_MAX_BYTES = int(os.environ.get(
+        "RAY_TPU_COLLECTIVE_PALLAS_MAX_KB", "64")) << 10
     # Segments grow by rebuild but never shrink, so one oversize op would
     # pin (w+2)*slot of tmpfs for the group's life; above the cap the
     # ring carries the op with no resident cost. Forced shm overrides.
@@ -693,13 +708,21 @@ class HostGroup:
         rank runs the fused kernel. A rank votes 1 for a CUDA payload whose
         op reaches a built kernel instance; for a CUDA payload a failure of
         the tier (its build, its IPC mapping, an earlier launch) raises on
-        every rank instead of sending the payload to another tier."""
+        every rank instead of sending the payload to another tier. Where
+        every rank holds a card of its own, an unquantized op above
+        PALLAS_MAX_BYTES skips the round and falls through to
+        _device_route, as the reference's (a forced pallas pin is
+        device-like there); where ranks share a card, and for a quantized
+        op, every size votes here."""
         forced = self.force_transport
         if forced is not None and forced != Transport.PALLAS.value:
             return False
         if not self._pallas_shaped or self._destroyed:
             if forced == Transport.PALLAS.value:
                 self._forced_unavailable(forced)
+            return False
+        if (self._device_shaped and quantize is None
+                and getattr(arr, "nbytes", 0) > self.PALLAS_MAX_BYTES):
             return False
         vote = 0
         if is_cuda_tensor(arr):

@@ -20,7 +20,12 @@ Two kinds of group, as in the reference:
   `create_collective_group` (or `declare_collective_group`) sets a group
   up from the process that owns the actors, through each actor's
   `__ray_collective_init__` (`CollectiveActorMixin`).
-- backend="xla": every rank of the group in this process, the
+- backend="xla" from the processes of a multihost runtime
+  (parallel/multihost.initialize), one rank each: `ProcessMeshGroup`
+  (backends/device_backend.py), whose ops go to the DEVICE tier over the
+  runtime's process group with no per-op vote (the reference's
+  ProcessMeshGroup over the global mesh).
+- backend="xla" otherwise: every rank of the group in this process, the
   counterpart of the reference's single-controller device group
   (xla_backend.XlaGroup), over the fused ring kernels of one address
   space (pallas_backend.LocalPallasTransport). `init_collective_group` is
@@ -146,6 +151,11 @@ class RankHandle:
     def broadcast(self, tensor, src_rank: int = 0):
         return self._t().broadcast(self.rank, tensor, src_rank)
 
+    def shift_right(self, tensor):
+        """Ring permute: this rank's tensor goes to rank (r + 1) % w, and
+        rank (r - 1) % w's comes back."""
+        return self._t().shift_right(self.rank, tensor)
+
     def barrier(self):
         self._t().barrier(self.rank)
 
@@ -153,6 +163,18 @@ class RankHandle:
         """Waits for this rank's collectives; TimeoutError if one of them
         waited longer than the group's timeout for a peer."""
         self.group.transport.check(self.rank)
+
+
+def _spans_processes(world_size: int) -> bool:
+    """True when a group of world_size ranks is one rank a process of this
+    process's multihost runtime (reference: collective.py:50-65)."""
+    from ray_tpu_torch.parallel import multihost
+
+    if world_size <= 1 or not multihost.is_initialized():
+        return False
+    import torch.distributed as dist
+
+    return world_size == dist.get_world_size()
 
 
 class GroupManager:
@@ -169,17 +191,28 @@ class GroupManager:
         backend = Backend(backend)
         if backend == Backend.AUTO:
             backend = Backend.XLA if world_size == 1 else Backend.HOST
+        if backend == Backend.XLA and _spans_processes(world_size):
+            from ray_tpu_torch.collective.backends.device_backend import (
+                ProcessMeshGroup)
+
+            return self._add(group_name, lambda: ProcessMeshGroup(
+                group_name, world_size, rank,
+                quantize=normalize_quantize(quantize)))
         if backend == Backend.XLA:
             return self._join_local(group_name, world_size, rank, timeout,
                                     transport, quantize, device)
+        from ray_tpu_torch.collective.backends.host_backend import HostGroup
+
+        return self._add(group_name, lambda: HostGroup(
+            group_name, world_size, rank, timeout=timeout,
+            transport=Transport(transport).value,
+            quantize=normalize_quantize(quantize)))
+
+    def _add(self, group_name: str, make):
         with self._lock:
             if group_name in self._groups:
                 raise RuntimeError(f"group {group_name!r} already exists")
-        from ray_tpu_torch.collective.backends.host_backend import HostGroup
-
-        group = HostGroup(group_name, world_size, rank, timeout=timeout,
-                          transport=Transport(transport).value,
-                          quantize=normalize_quantize(quantize))
+        group = make()
         with self._lock:
             self._groups[group_name] = group
         return group

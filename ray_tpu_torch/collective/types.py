@@ -34,8 +34,11 @@ class Transport(str, enum.Enum):
     PALLAS — the fused ring collectives, one hand-written CUDA kernel per
           op and rank (backends/pallas_backend.py), the peers' buffers
           mapped through CUDA IPC: when every rank holds a card and a CUDA
-          payload of a built instance. It carries every payload size: the
-          JAX package's 64 KB ceiling is ROADMAP.md A9.
+          payload of a built instance. Where every rank holds a card of
+          its own it carries unquantized payloads up to the reference's
+          64 KB gate (HostGroup.PALLAS_MAX_BYTES) and larger ones go to
+          DEVICE; where ranks share a card, and for an int8-quantized op
+          (NCCL has no int8 wire), it carries every size.
     DEVICE — a torch.distributed process group of the group's own (NCCL
           when every rank holds a card of its own; gloo on the CPU when
           forced): backends/device_backend.DeviceTransport.

@@ -26,12 +26,34 @@ On the card a collective call returns once the rank's kernels are
 enqueued (a peer that does not come raises TimeoutError at the call);
 the host syncs once, at the epoch's end (`HostGroup.check`).
 
-Mesh mode and the compile cache of the JAX operator are later slices of
-the port (ROADMAP.md).
+On a mesh (`register(mesh=)`, or config["mesh_mode"] == "fsdp", which
+builds parallel.mesh.fsdp_mesh and fsdp_param_specs), the step runs
+SPMD over the mesh's ranks, with no collective group: the ranks of a
+multihost generation, whose runtime is their default process group
+(parallel/multihost.py), or one rank alone. Each rank feeds its local
+rows of the batch (the batch's leading dimension sharded over the batch
+spec's axes). A parameter whose spec shards its leading dimension keeps
+only its rows between steps (`_MeshLayout`): the optimizer holds that
+shard, and its state with it; the full tensor is all-gathered before the
+forward and freed after the backward, whose gradient is reduce-scattered
+back to the shard. Replicated parameters keep the full tensor and
+allreduce their gradient. Either gradient is the mean over the batch
+axes, the full-batch gradient of the reference's psum. Of the three ways
+to carry this (FSDP2's `fully_shard` on the submodules whose parameters
+all divide, a step on DTensor, or collectives by hand) the port takes
+the third: torch.distributed's all-gather, reduce-scatter and allreduce
+over the mesh's groups (NCCL, or gloo on the CPU), one bucket per axis
+set and dtype; the reference leaves them to XLA and hand-wrote no kernel
+for them. `state_dict` gathers the parameters and the optimizer state,
+so on a mesh it is a collective: every rank calls it.
+
+The compile cache of the JAX operator is a later slice of the port
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Any, Callable, Iterable
 
@@ -41,6 +63,7 @@ from torch import nn
 
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.collective import collective as col
+from ray_tpu_torch.train import metrics as _tm
 from ray_tpu_torch.train import sharding as _shard
 
 
@@ -55,7 +78,10 @@ class TrainingOperator:
         self.device = resolve_device(device)
         self._group_name = group_name
         self._group = None
-        if world_size > 1:
+        self._mesh = None
+        # a multihost generation has no collective group: its ranks step
+        # SPMD over a mesh of their runtime
+        if world_size > 1 and not self.config.get("multihost"):
             if group_name is None:
                 raise ValueError("world_size > 1 needs the collective group "
                                  "of the ranks (group_name)")
@@ -91,7 +117,8 @@ class TrainingOperator:
                  loss_fn: Callable[[nn.Module, Any], torch.Tensor],
                  to_tree: Callable[[nn.Module], tuple],
                  from_tree: Callable[[nn.Module, dict, dict], Any],
-                 eval_fn: Callable[[nn.Module, Any], dict] | None = None):
+                 eval_fn: Callable[[nn.Module, Any], dict] | None = None,
+                 mesh=None, param_spec=None, batch_spec=None):
         """Register the model.
 
         model: an nn.Module; it moves to the operator's device. Mutable
@@ -106,19 +133,53 @@ class TrainingOperator:
             params, model_state): the checkpoint layout of state_dict(),
             the JAX package's pytrees (for ResNet, `params_to_jax` and
             `load_jax_params`), so both packages' checkpoints match.
+        mesh: a DeviceMesh of the ranks (parallel.mesh): the step runs SPMD
+            over it (module docstring). param_spec: a PartitionSpec for
+            every parameter, or a dict of them by parameter name (default
+            replicated); a spec may shard a parameter's leading dimension
+            only. batch_spec: the batch's PartitionSpec (default
+            P("dp"): rows over the data axis).
         """
+        from ray_tpu_torch.parallel import mesh as _meshlib
+
         self._registered = True
         self.model = model.to(self.device).train()
         self._params = list(self.model.parameters())
-        if self._sharded:
+        if mesh is None and self.config.get("mesh_mode") == "fsdp":
+            # the topology-derived ('data','fsdp') mesh: parameters over
+            # fsdp, batch over data
+            mesh = _meshlib.fsdp_mesh(self.device)
+            if param_spec is None:
+                param_spec = _meshlib.fsdp_param_specs(
+                    dict(self.model.named_parameters()), mesh)
+            if batch_spec is None:
+                batch_spec = _meshlib.P("data")
+        self._mesh = mesh
+        # sharded stays on at world_size == 1 (collectives degenerate to
+        # identity), as in the JAX operator; a mesh shards by its specs
+        self._sharded = self._sharded and mesh is None
+        if mesh is not None:
+            self._layout = _MeshLayout(
+                self.model, mesh, param_spec,
+                batch_spec if batch_spec is not None else _meshlib.P("dp"))
+            self.optimizer = optimizer(self._layout.trained)
+        elif self._sharded:
             self._init_sharded_state(optimizer)
         else:
             self.optimizer = optimizer(self._params)
+        self._observe_opt_bytes()
         self._loss_fn = loss_fn
         self._eval_fn = eval_fn or (
             lambda model, batch: {"val_loss": loss_fn(model, batch)})
         self._to_tree = to_tree
         self._from_tree = from_tree
+
+    def _observe_opt_bytes(self):
+        """train.optim_shard_bytes: the bytes of this rank's optimizer
+        state. torch's optimizers make their state at the first step, so
+        it reads 0 until then and is set again after each epoch."""
+        _tm.OPT_SHARD_BYTES.set(_shard.opt_nbytes(
+            self.optimizer.state_dict()["state"]))
 
     def _init_sharded_state(self, optimizer):
         """ZeRO weight-update sharding (arXiv:2004.13336): this rank keeps
@@ -207,9 +268,27 @@ class TrainingOperator:
             p.grad = g.view_as(p)
         self.optimizer.step()
 
+    def _mesh_step(self, batch):
+        """One SPMD step over the mesh: the sharded parameters gathered,
+        forward and backward on this rank's rows, every gradient averaged
+        over the batch axes (a sharded one reduce-scattered to its rows),
+        the full tensors freed, the optimizer's update of what this rank
+        holds."""
+        self._layout.gather()
+        self.optimizer.zero_grad(set_to_none=True)
+        self.model.zero_grad(set_to_none=True)
+        loss = self._loss_fn(self.model, batch)
+        loss.backward()
+        self._layout.reduce_grads()
+        self._layout.release()
+        self.optimizer.step()
+        return loss.detach()
+
     def _step(self, batch):
         """One step; returns the loss, still on the device."""
-        batch = self._to_device(batch)
+        batch = self._to_device(batch)  # this rank's rows, on its device
+        if self._mesh is not None:
+            return self._mesh_step(batch)
         if self.world_size == 1 and not self._sharded:
             self.optimizer.zero_grad(set_to_none=True)
             loss = self._loss_fn(self.model, batch)
@@ -240,10 +319,20 @@ class TrainingOperator:
         self.model.train()
         t0 = time.perf_counter()
         losses, samples = [], 0
+        t_step = t0
         for step, batch in enumerate(self._train_loader, 1):
+            # step_s spans the loader's wait and the dispatch: with
+            # ingest_wait_s (observed in IngestStream's get) the pair says
+            # whether training is input-bound
             losses.append(self._step(batch))
             self.global_step += 1
-            samples += _batch_size(batch)
+            bs = _batch_size(batch)
+            samples += bs
+            if bs:
+                _tm.TOKENS_TOTAL.inc(bs)
+            now = time.perf_counter()
+            _tm.STEP_S.observe(now - t_step)
+            t_step = now
             if num_steps is not None and step >= num_steps:
                 break
         # One sync for the whole epoch: the loop only enqueued work.
@@ -252,6 +341,7 @@ class TrainingOperator:
             self._group.check()  # the epoch's one wait for the card
         dt = time.perf_counter() - t0
         self.epoch += 1
+        self._observe_opt_bytes()
         return {
             "epoch": self.epoch,
             "batch_count": len(losses),
@@ -271,6 +361,8 @@ class TrainingOperator:
             raise RuntimeError("no validation_loader registered")
         saved = {n: b.clone() for n, b in self.model.named_buffers()}
         metrics, samples = [], 0
+        if self._mesh is not None:
+            self._layout.gather()
         try:
             with torch.no_grad():
                 for step, batch in enumerate(self._val_loader, 1):
@@ -283,6 +375,8 @@ class TrainingOperator:
             with torch.no_grad():
                 for n, b in self.model.named_buffers():
                     b.copy_(saved[n])
+            if self._mesh is not None:
+                self._layout.release()
         # to the host after the loop: the loop only enqueued work
         host = [{k: float(v) for k, v in m.items()} for m in metrics]
         out = {k: float(np.mean([m[k] for m in host]))
@@ -299,12 +393,25 @@ class TrainingOperator:
         optimizer's state: `opt_state` when replicated; under
         sharded_update, `sharded_update: True` and this rank's
         `opt_shard` (opt_shard_state), as the JAX operator writes it."""
-        params, model_state = self._to_tree(self.model)
+        if self._mesh is not None:
+            # a collective on a mesh: every rank gathers the parameters
+            # and the optimizer state (the reference's process_allgather)
+            self._layout.gather()
+            try:
+                params, model_state = self._to_tree(self.model)
+            finally:
+                self._layout.release()
+            opt_state = self._layout.full_opt_state(
+                self.optimizer.state_dict())
+        else:
+            params, model_state = self._to_tree(self.model)
         out = {"params": params, "model_state": model_state,
                "epoch": self.epoch, "global_step": self.global_step}
         if self._sharded:
             out["sharded_update"] = True
             out["opt_shard"] = self.opt_shard_state()
+        elif self._mesh is not None:
+            out["opt_state"] = _to_host(opt_state)
         else:
             out["opt_state"] = _to_host(self.optimizer.state_dict())
         return out
@@ -325,6 +432,19 @@ class TrainingOperator:
                 "sharded checkpoint cannot load into an unsharded "
                 "trainer; construct Trainer(sharded=True) or load "
                 "the sharded manifest via Trainer.load()")
+        if self._mesh is not None:
+            self._layout.materialize()
+            try:
+                self._from_tree(self.model, state["params"],
+                                state["model_state"])
+                self._layout.take_shards()
+            finally:
+                self._layout.release()
+            self.optimizer.load_state_dict(
+                self._layout.shard_opt_state(state["opt_state"]))
+            self.epoch = state["epoch"]
+            self.global_step = state["global_step"]
+            return
         self._from_tree(self.model, state["params"], state["model_state"])
         if self._sharded:
             # in place: the optimizer holds this Parameter
@@ -386,6 +506,199 @@ class TrainingOperator:
         self.optimizer.load_state_dict({
             "state": {0: dict(zip(names, leaves))} if leaves else {},
             "param_groups": groups})
+
+
+def _leading_axes(spec, sizes: dict, what: str) -> tuple:
+    """The mesh axes a PartitionSpec shards a tensor's leading dimension
+    over (major first). The port's mesh step shards no other dimension:
+    a later entry naming an axis of more than one rank raises."""
+    entries = tuple(spec or ())
+    for entry in entries[1:]:
+        for axis in ((entry,) if isinstance(entry, str) else entry or ()):
+            if sizes[axis] > 1:
+                raise NotImplementedError(
+                    f"{what} {spec} shards a dimension past the first; the "
+                    "port's mesh step shards the leading dimension only")
+    first = entries[0] if entries else None
+    axes = (first,) if isinstance(first, str) else tuple(first or ())
+    for axis in axes:
+        if axis not in sizes:
+            raise ValueError(f"{what} {spec} names axis {axis!r}, not one "
+                             f"of the mesh's {tuple(sizes)}")
+    return axes
+
+
+class _MeshLayout:
+    """A module's parameters on a mesh: which are sharded (their leading
+    dimension over the axes of their spec; the rank keeps its rows in a
+    shard Parameter that the optimizer updates) and which replicated, and
+    the collectives of the step over the mesh's per-axis groups, one
+    bucket per axis set and dtype. A group of several axes is composed
+    axis by axis: the all-gather minor axis first, the reduce-scatter
+    major axis first, so the rows come out in the spec's order."""
+
+    def __init__(self, model: nn.Module, mesh, param_spec, batch_spec):
+        from ray_tpu_torch.parallel import mesh as _meshlib
+
+        self._sizes = _meshlib.axis_sizes(mesh)
+        self._mesh = mesh
+        self._coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        self._batch = [a for a in _leading_axes(batch_spec, self._sizes,
+                                                "batch_spec")
+                       if self._sizes[a] > 1]
+        self._n_batch = math.prod(self._sizes[a] for a in self._batch)
+        # (param, its full shape, its axes, its shard Parameter or None)
+        self._entries = []
+        self.trained = []
+        for name, p in model.named_parameters():
+            spec = (param_spec[name] if isinstance(param_spec, dict)
+                    else param_spec)
+            axes = _leading_axes(spec, self._sizes, f"param_spec of {name}")
+            k = math.prod(self._sizes[a] for a in axes)
+            shard = None
+            if k > 1:
+                if p.dim() == 0 or p.shape[0] % k:
+                    raise ValueError(
+                        f"parameter {name} {tuple(p.shape)}: its leading "
+                        f"dimension does not split over {axes} ({k} ways)")
+                shard = nn.Parameter(self._rows(p.detach(), axes).clone())
+            self._entries.append((p, tuple(p.shape), axes, shard))
+            self.trained.append(p if shard is None else shard)
+        self.release()
+
+    def _group(self, axis):
+        return self._mesh.get_group(axis)
+
+    def _index(self, axes) -> int:
+        """This rank's shard index over `axes` (major first)."""
+        idx = 0
+        for a in axes:
+            idx = idx * self._sizes[a] + self._coord[a]
+        return idx
+
+    def _rows(self, t: torch.Tensor, axes) -> torch.Tensor:
+        k = math.prod(self._sizes[a] for a in axes)
+        return t.reshape(k, -1)[self._index(axes)].reshape(
+            (t.shape[0] // k,) + tuple(t.shape[1:]))
+
+    def _all_gather(self, flat: torch.Tensor, axes) -> torch.Tensor:
+        """Every rank's flat over `axes`, in shard order: [k, M]."""
+        import torch.distributed as dist
+
+        x = flat
+        for a in reversed(axes):
+            if self._sizes[a] > 1:
+                out = x.new_empty(self._sizes[a] * x.numel())
+                dist.all_gather_into_tensor(out, x, group=self._group(a))
+                x = out
+        return x.view(math.prod(self._sizes[a] for a in axes), -1)
+
+    def _buckets(self, sharded: bool):
+        """(axes, [(param, full shape, shard), ...]) of one axis set and
+        dtype each, in parameter order."""
+        out: dict = {}
+        for p, shape, axes, shard in self._entries:
+            if (shard is not None) == sharded:
+                out.setdefault((axes, p.dtype), []).append((p, shape, shard))
+        return [(axes, items) for (axes, _), items in out.items()]
+
+    def gather(self):
+        """Every sharded parameter's full tensor, all-gathered from the
+        ranks' shards into the module."""
+        for axes, items in self._buckets(True):
+            flat = torch.cat([sh.detach().reshape(-1) for _, _, sh in items])
+            full, off = self._all_gather(flat, axes), 0
+            for p, shape, sh in items:
+                m = sh.numel()
+                p.data = full[:, off:off + m].reshape(shape)
+                off += m
+
+    def materialize(self):
+        """Full-size storage for every sharded parameter (to load into)."""
+        for p, shape, _, shard in self._entries:
+            if shard is not None:
+                p.data = shard.new_empty(shape)
+
+    def take_shards(self):
+        """Each shard from its parameter's full tensor in the module."""
+        with torch.no_grad():
+            for p, _, axes, shard in self._entries:
+                if shard is not None:
+                    shard.copy_(self._rows(p.data, axes))
+
+    def release(self):
+        """Frees the sharded parameters' full tensors (and gradients)."""
+        for p, _, _, shard in self._entries:
+            if shard is not None:
+                p.data = shard.new_empty(0)
+                p.grad = None
+
+    def _mean_over_batch(self, x: torch.Tensor, skip=()) -> torch.Tensor:
+        import torch.distributed as dist
+
+        for a in self._batch:
+            if a not in skip:
+                dist.all_reduce(x, group=self._group(a))
+        return x / self._n_batch if self._n_batch > 1 else x
+
+    def reduce_grads(self):
+        """Each trained tensor's gradient: the mean over the batch axes of
+        the ranks' gradients; a sharded parameter's only its rows
+        (reduce-scattered over the axes that are batch axes, sliced over
+        the others, on which every rank holds the same gradient)."""
+        import torch.distributed as dist
+
+        def grad(p):
+            return p.grad if p.grad is not None else torch.zeros_like(p)
+
+        for _, items in self._buckets(False):
+            flat = self._mean_over_batch(
+                torch.cat([grad(p).reshape(-1) for p, _, _ in items]))
+            off = 0
+            for p, shape, _ in items:
+                p.grad = flat[off:off + p.numel()].view(shape)
+                off += p.numel()
+        for axes, items in self._buckets(True):
+            k = math.prod(self._sizes[a] for a in axes)
+            x = torch.cat([grad(p).reshape(k, -1) for p, _, _ in items],
+                          dim=1).reshape(-1)
+            for a in axes:
+                n = self._sizes[a]
+                if a in self._batch:
+                    out = x.new_empty(x.numel() // n)
+                    dist.reduce_scatter_tensor(out, x, group=self._group(a))
+                    x = out
+                else:
+                    x = x.view(n, -1)[self._coord[a]].contiguous()
+            x, off = self._mean_over_batch(x, skip=axes), 0
+            for _, _, sh in items:
+                sh.grad = x[off:off + sh.numel()].view_as(sh)
+                off += sh.numel()
+
+    def _sharded_state(self, opt_state: dict, fn) -> dict:
+        """opt_state with fn(tensor, full shape, axes) applied to every
+        tensor state of a sharded parameter, in index and name order (the
+        same on every rank, since fn may be a collective)."""
+        state = {}
+        for i, st in sorted(opt_state["state"].items()):
+            _, shape, axes, shard = self._entries[i]
+            state[i] = ({k: (fn(v, shape, axes)
+                             if isinstance(v, torch.Tensor) and v.dim()
+                             else v) for k, v in sorted(st.items())}
+                        if shard is not None else st)
+        return {"state": state, "param_groups": opt_state["param_groups"]}
+
+    def full_opt_state(self, opt_state: dict) -> dict:
+        """The optimizer's state with every shard's tensors all-gathered
+        to their parameter's full shape: the layout of an optimizer over
+        the whole module (a collective: every rank calls it)."""
+        return self._sharded_state(opt_state, lambda v, shape, axes: (
+            self._all_gather(v.reshape(-1), axes).reshape(shape)))
+
+    def shard_opt_state(self, opt_state: dict) -> dict:
+        """full_opt_state's inverse: this rank's rows of each tensor."""
+        return self._sharded_state(opt_state, lambda v, shape, axes: (
+            self._rows(v, axes).clone()))
 
 
 def _to_host(obj):

@@ -31,6 +31,19 @@ plane (`TrainWorker.sync_state`) and, under `sharded=True`, the ranks'
 optimizer shards resharded to the new world size; then the call runs
 again, at most `max_retries` times. An error with every rank alive is
 the user's and is raised at once.
+
+`config={"multihost": True}`: the generation's ranks join one multihost
+runtime (parallel/multihost.initialize: their default process group,
+NCCL a card a rank or gloo on the CPU) before the operator is built, and
+have no collective group: the operator steps SPMD over a mesh of that
+runtime (`register(mesh=)`, or `mesh_mode="fsdp"`). Its state_dict is
+then a collective that every rank calls. A re-gang joins the next
+generation's runtime.
+
+`ingest=IngestSpec(...)`: one DatasetShard actor a rank streams the
+rank's batches through the object store (train/ingest.py); the actors
+belong to the generation, counted in its gang scan, killed with it and
+restarted at the new world size.
 """
 
 from __future__ import annotations
@@ -101,15 +114,25 @@ class TrainWorker(col.CollectiveActorMixin):
         self._num_cpus = num_cpus
         self.operator = None
 
-    def setup_operator(self) -> int:
+    def setup_operator(self, timeout: float = 60.0) -> int:
         """Builds the rank (after the group, when there is one); returns
         the worker's pid, which Trainer.shutdown waits on. A CPU worker
         computes on the CPUs it leased: torch's threads are that many, so
-        its float sums keep one order whatever else runs on the host."""
+        its float sums keep one order whatever else runs on the host.
+        Under config["multihost"] the process first joins the generation's
+        multihost runtime (reference: trainer.py:46-53), waiting `timeout`
+        seconds for its peers there and in each collective."""
         if self._device == "cpu":
             import torch
 
             torch.set_num_threads(max(1, int(self._num_cpus)))
+        if self._config.get("multihost"):
+            from ray_tpu_torch.parallel import multihost
+
+            multihost.initialize(
+                self._group_name, self._world_size, self._rank,
+                backend="gloo" if self._device == "cpu" else "nccl",
+                timeout=timeout)
         self.operator = self._operator_cls(
             self._config, self._rank, self._world_size,
             device=resolve_device(self._device),
@@ -138,8 +161,11 @@ class TrainWorker(col.CollectiveActorMixin):
     def validate(self, num_steps=None) -> dict:
         return self.operator.validate(num_steps)
 
-    def state_dict(self):
-        return self.operator.state_dict()
+    def state_dict(self, keep: bool = True):
+        """The rank's state_dict; None unless `keep` (on a mesh every rank
+        takes part in the gather, and one copy comes back)."""
+        state = self.operator.state_dict()
+        return state if keep else None
 
     def load_state_dict(self, state):
         self.operator.load_state_dict(state)
@@ -179,6 +205,19 @@ class TrainWorker(col.CollectiveActorMixin):
         ru = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
         return int(ru if sys.platform == "darwin" else ru * 1024)
 
+    def attach_ingest(self, dataset_actor, depth: int):
+        """Feeds the rank from its DatasetShard actor: batches prefetch
+        `depth` deep through the object store while the step computes (the
+        validation loader stays)."""
+        from ray_tpu_torch.train.ingest import IngestStream
+
+        op = self.operator
+        op.register_data(
+            train_loader=IngestStream(dataset_actor, depth,
+                                      lambda: op.epoch),
+            validation_loader=op._val_loader)
+        return True
+
     def run(self, fn):
         """fn([operator]), this worker's rank's TrainingOperator in a
         list, run in this worker's process: for checks and tools that
@@ -215,6 +254,10 @@ class TrainWorker(col.CollectiveActorMixin):
         if self._group_name is not None and col.is_group_initialized(
                 self._group_name):
             col.destroy_collective_group(self._group_name)
+        if self._config.get("multihost"):
+            from ray_tpu_torch.parallel import multihost
+
+            multihost.shutdown()
         self.operator = None
         ray_tpu_torch.exit_actor()
 
@@ -238,7 +281,12 @@ class Trainer:
     the rank's 1/N flat span, allgather(params); checkpoints become
     per-rank shard files behind an index manifest (save/load), and a
     resize re-partitions the optimizer shards to the new world size.
-    mesh_mode (FSDP) is a later slice.
+    mesh_mode="fsdp": the operator builds the ('data','fsdp') mesh
+    (parallel.mesh.fsdp_mesh) and shards the parameters over fsdp; one
+    worker, or several under config={"multihost": True}. A multihost
+    trainer on CUDA needs a card a rank (NCCL refuses two ranks on one
+    card). ingest: an ingest.IngestSpec, one DatasetShard actor a rank
+    streaming its batches; it replaces the operator's train_loader.
 
     max_retries: re-gangs a `train`/`validate` call may take after losing
     a rank. placement_strategy (default "ICI_RING", which places as PACK
@@ -257,22 +305,38 @@ class Trainer:
                  collective_transport: str = "auto",
                  placement_strategy: str | None = "ICI_RING",
                  sharded: bool = False, mesh_mode: str | None = None,
-                 device=None):
+                 ingest=None, device=None):
         if num_workers < 1:
             raise ValueError(f"num_workers must be >= 1, got {num_workers}")
         self._operator_cls = training_operator_cls
         self._config = dict(config or {})
+        self._multihost = bool(self._config.get("multihost"))
         self._sharded = bool(sharded)
         if sharded:
             if mesh_mode is not None:
                 raise ValueError(
                     "sharded=True (collective ZeRO) and mesh_mode (SPMD) "
                     "are mutually exclusive update plans")
+            if self._multihost:
+                raise ValueError(
+                    "sharded=True uses the HOST collective plane; "
+                    "multihost groups sync through the mesh's collectives "
+                    "instead")
             self._config["sharded_update"] = True
         if mesh_mode is not None:
-            raise NotImplementedError(
-                f"mesh_mode={mesh_mode!r}: the FSDP mesh is a later slice "
-                "(ROADMAP.md queue A item 5)")
+            if mesh_mode != "fsdp":
+                raise ValueError(f"unknown mesh_mode {mesh_mode!r} "
+                                 "(expected 'fsdp' or None)")
+            if num_workers > 1 and not self._multihost:
+                raise ValueError(
+                    "mesh_mode='fsdp' with multiple workers requires "
+                    "config={'multihost': True} (a GLOBAL mesh); "
+                    "host-backend workers would each build a private "
+                    "mesh and never sync")
+            self._config["mesh_mode"] = mesh_mode
+        self._ingest = ingest
+        self._ingest_actors: list = []
+        self._ingest_pids: list[int] = []
         self._quantize = normalize_quantize(quantize)
         Transport(collective_transport)  # validates the name
         self._collective_transport = collective_transport
@@ -297,6 +361,12 @@ class Trainer:
                     "one node; ranks across nodes are ROADMAP.md A4 item 5")
             # more ranks than cards on the node: k ranks share a card
             resources["GPU"] = 1 / math.ceil(num_workers * gpus / node_gpus)
+            if self._multihost:
+                raise ValueError(
+                    f"a multihost trainer of {num_workers} ranks on "
+                    f"{node_gpus} card(s) would put two ranks on one card; "
+                    "NCCL refuses that, so a multihost trainer on CUDA needs "
+                    "a card a rank")
         self._resources = resources
         self._num_workers = num_workers
         self._max_retries = max_retries
@@ -391,7 +461,9 @@ class Trainer:
             if self._pg is not None else worker_cls.remote(*args, rank, *tail)
             for rank in range(num_workers)]
         self._pids = []
-        if num_workers > 1:
+        if num_workers > 1 and not self._multihost:
+            # a multihost generation syncs through its mesh's collectives:
+            # no HOST group (reference: trainer.py:313-314)
             col.create_collective_group(
                 self.workers, num_workers, list(range(num_workers)),
                 backend="host", group_name=group_name,
@@ -399,10 +471,36 @@ class Trainer:
                 transport=self._collective_transport,
                 placement_group=self._pg)
         self._pids = ray_tpu_torch.get(
-            [w.setup_operator.remote() for w in self.workers],
-            timeout=self._setup_timeout)
+            [w.setup_operator.remote(max(60.0, self._collective_timeout))
+             for w in self.workers], timeout=self._setup_timeout)
+        self._start_ingest(num_workers)
         self._last_start = {"started_at": started_at,
                             **self._restore_state()}
+
+    def _start_ingest(self, num_workers: int):
+        """One DatasetShard actor a rank; every generation re-shards the
+        dataset over its own world size (reference: trainer.py:332-353)."""
+        if self._ingest is None:
+            return
+        from ray_tpu_torch._private.config import get_config
+        from ray_tpu_torch.train.ingest import DatasetShard
+
+        spec = self._ingest
+        depth = (spec.prefetch_depth if spec.prefetch_depth is not None
+                 else get_config().train_ingest_prefetch_depth)
+        shard_cls = ray_tpu_torch.remote(
+            resources=dict(spec.resources or {"CPU": 1}))(DatasetShard)
+        fn_pickled = cloudpickle.dumps(spec.dataset_fn)
+        self._ingest_actors = [
+            shard_cls.remote(fn_pickled, rank, num_workers, self._config)
+            for rank in range(num_workers)]
+        self._ingest_pids = ray_tpu_torch.get(
+            [a.ping.remote() for a in self._ingest_actors],
+            timeout=self._setup_timeout)
+        ray_tpu_torch.get([w.attach_ingest.remote(a, depth)
+                           for w, a in zip(self.workers,
+                                           self._ingest_actors)],
+                          timeout=self._setup_timeout)
 
     def _restore_state(self) -> dict:
         """Re-installs the training state into a fresh generation: the
@@ -413,7 +511,7 @@ class Trainer:
         t0 = time.perf_counter()
         sync_s = None
         if self._last_state is not None:
-            if num_workers > 1:
+            if num_workers > 1 and not self._multihost:
                 # the driver sends ONE copy, to rank 0; the group's data
                 # plane fans it out
                 ray_tpu_torch.get(
@@ -443,14 +541,16 @@ class Trainer:
     def _kill_workers(self, timeout: float = 60.0):
         """Kills the generation and waits until its processes are gone and
         the raylet has returned their leases (so the next generation sees
-        every resource they held, and the cards' memory is free); then
-        releases the gang's bundles."""
-        for w in self.workers:
+        every resource they held, and the cards' memory is free), its
+        ingest actors' too; then releases the gang's bundles."""
+        for w in self.workers + self._ingest_actors:
             try:
                 ray_tpu_torch.kill(w)
             except Exception:
                 pass
-        pids, self.workers, self._pids = self._pids, [], []
+        pids = self._pids + self._ingest_pids
+        self.workers, self._pids = [], []
+        self._ingest_actors, self._ingest_pids = [], []
         try:
             if not _wait_gone(pids, timeout):
                 raise TimeoutError(
@@ -492,12 +592,14 @@ class Trainer:
         return self._gang_interrupted()[0]
 
     def _gang_interrupted(self) -> tuple[bool, bool]:
-        """-> (broken, planned). Broken: a worker is DEAD. Planned: every
-        death found was a drain. The port has no drain, so `planned`
-        never holds here; the branch keeps the reference's shape."""
+        """-> (broken, planned). Broken: a worker or an ingest actor is DEAD
+        (a dead DatasetShard means its rank's stream is gone, so the
+        generation restarts as for a dead worker). Planned: every death
+        found was a drain. The port has no drain, so `planned` never holds
+        here; the branch keeps the reference's shape."""
         cw = global_state.require_core_worker()
         broken, planned = False, True
-        for w in self.workers:
+        for w in self.workers + self._ingest_actors:
             info = cw.get_actor_info(w._actor_id.binary())
             if info is None or info.get("state") == "DEAD":
                 broken = True
@@ -580,8 +682,15 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def state_dict(self) -> dict:
-        return ray_tpu_torch.get(self.workers[0].state_dict.remote(),
-                                 timeout=120)
+        """Rank 0's state_dict. Under multihost it is a collective (the
+        mesh's shards gathered), so every rank computes it and rank 0's
+        comes back."""
+        if not self._multihost:
+            return ray_tpu_torch.get(self.workers[0].state_dict.remote(),
+                                     timeout=120)
+        return ray_tpu_torch.get(
+            [w.state_dict.remote(r == 0) for r, w in enumerate(self.workers)],
+            timeout=120)[0]
 
     def load_state_dict(self, state: dict):
         self._last_state = state

@@ -348,7 +348,8 @@ def test_unported_transports_raise(transport, err, match):
 def test_broadcast_raises():
     """broadcast is the reference's masked allreduce (the source's payload
     and every other rank's zeros), bit for bit the source's; a source
-    outside the group raises; shift_right is not ported and raises."""
+    outside the group raises; shift_right (the reference's ring permute)
+    moves rank r's tensor to rank (r + 1) % w, bit for bit."""
     x = torch.randn(5, generator=torch.Generator().manual_seed(0))
     with _group(3) as hs:
         outs = [h.broadcast(x * (r + 1), src_rank=1)
@@ -356,8 +357,9 @@ def test_broadcast_raises():
         assert all(torch.equal(o, x * 2) for o in outs)
         with pytest.raises(ValueError, match="src_rank 3"):
             hs[0].broadcast(x, src_rank=3)
-        with pytest.raises(NotImplementedError, match="A5"):
-            hs[0].group.transport.shift_right(0, x)
+        outs = [h.shift_right(x * (r + 1)) for r, h in enumerate(hs)]
+        assert all(torch.equal(o, x * ((r - 1) % 3 + 1))
+                   for r, o in enumerate(outs))
 
 
 def test_withheld_rank_times_out_and_next_group_works():

@@ -443,6 +443,91 @@ def test_cuda_payload_never_leaves_a_broken_pallas_tier(fault):
             assert "'pallas'" in str(e) and "rank(s) [" in str(e), str(e)
 
 
+class _Tier:
+    """A device tier that takes every CUDA payload and records each op it
+    carries in `log`."""
+
+    def __init__(self, name, log):
+        self.name, self.log = name, log
+
+    def supports(self, kind, arr, op=None, quantize=None):
+        return True
+
+    def dtype_ok(self, dtype):
+        return True
+
+    def allreduce(self, arr, op, quantize=None):
+        self.log.append(self.name)
+        return arr
+
+
+def _reference_votes_pallas(n, forced):
+    """The reference's HostGroup._pallas_route, run as it is on a group
+    whose every rank holds a device of its own, for an f32 jax payload of
+    n elements: True where it takes the PALLAS tier, False where the op
+    falls through to the device tier."""
+    import types
+
+    import jax.numpy as jnp
+
+    from ray_tpu.collective.backends.host_backend import HostGroup as Ref
+
+    g = object.__new__(Ref)
+    g.force_transport, g._device_shaped, g._destroyed = forced, True, False
+    g._dbg, g._probe_rounds, g._pallas_disabled = {}, 0, False
+    g._transport_derived = False
+    g._ensure_pallas = lambda: types.SimpleNamespace(dtype_ok=lambda d: True)
+    g._hub_allgather = lambda arr, kind=None: [arr, arr]
+    return g._pallas_route(jnp.zeros(n, jnp.float32))
+
+
+@pytest.mark.parametrize("shape,transport", [
+    ("own_cards", "auto"), ("own_cards", "pallas"),
+    ("shared_card", "auto")])
+def test_size_gate_routes_as_the_reference(shape, transport):
+    """C1: where every rank holds a card of its own, an f32 payload of
+    64 KB takes the fused kernels and one element more falls through to
+    the device tier (NCCL), a forced "pallas" pin too, exactly where the
+    reference's gate (PALLAS_MAX_BYTES, 64 KB) sends it; where the ranks
+    share a card, and for an int8-quantized allreduce on either shape,
+    every size stays on the kernels (NCCL has no int8 wire). The group's
+    shape is stubbed and every tensor counts as CUDA."""
+    from ray_tpu.collective.backends.host_backend import HostGroup as Ref
+
+    from ray_tpu_torch.collective.backends import host_backend
+
+    assert host_backend.HostGroup.PALLAS_MAX_BYTES == Ref.PALLAS_MAX_BYTES
+    gate = Ref.PALLAS_MAX_BYTES // 4
+    sizes = (gate, gate + 1, 1 << 20)
+
+    def fn(g, r):
+        log = []
+        g._pallas_shaped = True
+        g._device_shaped = shape == "own_cards"
+        g._pallas, g._device = _Tier("pallas", log), _Tier("device", log)
+        g._ensure_pallas = lambda: g._pallas
+        g._ensure_device = lambda: g._device
+        for n in sizes:
+            g.allreduce(torch.ones(n))
+        for n in sizes:
+            g.allreduce(torch.ones(n), quantize="int8")
+        return log
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(host_backend, "is_cuda_tensor",
+                   lambda t: isinstance(t, torch.Tensor))
+        out = _port_threads(2, transport, fn)
+    if shape == "own_cards":
+        forced = None if transport == "auto" else "pallas"
+        want = ["pallas" if _reference_votes_pallas(n, forced) else "device"
+                for n in sizes]
+        assert want == ["pallas", "device", "device"]
+    else:
+        want = ["pallas"] * len(sizes)
+    want = want + ["pallas"] * len(sizes)
+    assert out == [want, want]
+
+
 def test_rank_death_aborts_not_hangs(actors):
     """The reference's test, on the shm tier: kill a rank after a warm op;
     every survivor raises TimeoutError within the group timeout, and the

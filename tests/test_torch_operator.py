@@ -276,13 +276,13 @@ def test_trainer_without_cuda_raises_instead_of_using_cpu(monkeypatch):
     ({"num_workers": 2, "collective_transport": "nccl"}, ValueError, "nccl"),
     ({"num_workers": 2, "collective_transport": "bogus"}, ValueError,
      "bogus"),
-    ({"mesh_mode": "fsdp"}, NotImplementedError, "ROADMAP")])
+    ({"mesh_mode": "tensor"}, ValueError, "unknown mesh_mode")])
 def test_trainer_unported_options_raise(kwargs, err, match):
-    """Options of the JAX Trainer that the port does not carry yet raise,
-    naming the ROADMAP item (the FSDP mesh), and a collective transport
-    that is no tier of the reference raises before any worker starts.
+    """A collective transport that is no tier of the reference, and a mesh
+    mode the reference does not know, raise before any worker starts.
     Every tier of the reference is carried (num_workers > 1 and
-    sharded=True too): tests/test_torch_collective_procs.py."""
+    sharded=True too): tests/test_torch_collective_procs.py; so is
+    mesh_mode="fsdp": tests/test_torch_train_mesh.py."""
     with pytest.raises(err, match=match):
         Trainer(PortOp, config={}, device="cpu", **kwargs)
 
