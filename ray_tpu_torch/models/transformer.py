@@ -104,25 +104,42 @@ class Block(nn.Module):
         self.b_out = nn.Parameter(torch.zeros(d))
 
 
+class Encoder(nn.Module):
+    """The encoder trunk alone (blocks and the final layernorm), as the
+    JAX package's ViT keeps it after deleting `wte` and `wpe` from
+    `init`'s tree."""
+
+    def __init__(self, cfg: TransformerConfig, gen: torch.Generator):
+        super().__init__()
+        _add_trunk(self, cfg, gen)
+
+
+def _add_trunk(model: nn.Module, cfg: TransformerConfig,
+               gen: torch.Generator):
+    """Gives model what `encode` runs: `cfg`, `blocks` (drawn from gen)
+    and the final layernorm `lnf_w`/`lnf_b`."""
+    if not isinstance(cfg.ops_mode, Ops) and cfg.ops_mode not in OPS:
+        raise ValueError(f"ops_mode {cfg.ops_mode!r}: expected one of "
+                         f"{tuple(OPS)} or an Ops")
+    model.cfg = cfg
+    model.blocks = nn.ModuleList(Block(cfg, gen)
+                                 for _ in range(cfg.n_layers))
+    model.lnf_w = nn.Parameter(torch.ones(cfg.d_model))
+    model.lnf_b = nn.Parameter(torch.zeros(cfg.d_model))
+
+
 class GPT(nn.Module):
     """`forward(tokens [B, T])` -> logits [B, T, vocab] f32."""
 
     def __init__(self, cfg: TransformerConfig, seed: int = 0):
         super().__init__()
-        if not isinstance(cfg.ops_mode, Ops) and cfg.ops_mode not in OPS:
-            raise ValueError(f"ops_mode {cfg.ops_mode!r}: expected one of "
-                             f"{tuple(OPS)} or an Ops")
-        self.cfg = cfg
         gen = torch.Generator().manual_seed(seed)
         d = cfg.d_model
         self.wte = nn.Parameter(torch.randn((cfg.vocab_size, d),
                                             generator=gen) * 0.02)
         self.wpe = nn.Parameter(torch.randn((cfg.max_seq, d),
                                             generator=gen) * 0.01)
-        self.blocks = nn.ModuleList(Block(cfg, gen)
-                                    for _ in range(cfg.n_layers))
-        self.lnf_w = nn.Parameter(torch.ones(d))
-        self.lnf_b = nn.Parameter(torch.zeros(d))
+        _add_trunk(self, cfg, gen)
         if not cfg.tie_embeddings:
             self.lm_head = _dense_init(gen, (d, cfg.vocab_size), d)
 
@@ -166,8 +183,8 @@ def _block(x, p: Block, cfg: TransformerConfig, pad_mask=None):
 
 def encode(model: GPT, x, pad_mask=None):
     """The shared encoder trunk: every block (each checkpointed when
-    cfg.remat), then the final layernorm. Used by GPT here and by bert/vit
-    in the JAX package."""
+    cfg.remat), then the final layernorm. `model`: a GPT or an Encoder.
+    Used by GPT, BERT and ViT."""
     cfg = model.cfg
     for blk in model.blocks:
         if cfg.remat:
@@ -206,6 +223,55 @@ def num_params(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
+def logical_axes(cfg: TransformerConfig):
+    """Tree of logical-axis tuples matching the JAX package's init()
+    tree (block parameters stacked on a leading "layers" axis).
+
+    "layers" is the stacked-block axis (maps to pp only in the pipeline
+    trainer; None otherwise); "embed"/"heads"/"mlp"/"vocab" follow
+    parallel/sharding.py DEFAULT_RULES. `named_axes` maps the tree onto
+    the port's parameter names.
+    """
+    ax = {
+        "wte": ("vocab", "embed"),
+        "wpe": (None, "embed"),
+        "blocks": {
+            "ln1_w": ("layers", "norm"), "ln1_b": ("layers", "norm"),
+            "wqkv": ("layers", "embed", "mlp"),
+            "wo": ("layers", "mlp", "embed"),
+            "ln2_w": ("layers", "norm"), "ln2_b": ("layers", "norm"),
+            "w_in": ("layers", "embed", "mlp"),
+            "b_in": ("layers", "mlp"),
+            "w_out": ("layers", "mlp", "embed"),
+            "b_out": ("layers", "embed"),
+        },
+        "lnf_w": ("norm",), "lnf_b": ("norm",),
+    }
+    if not cfg.tie_embeddings:
+        ax["lm_head"] = ("embed", "vocab")
+    return ax
+
+
+def named_axes(tree, n_layers: int, prefix: str = "") -> dict:
+    """A logical tree in the JAX layout -> {the port's parameter name:
+    logical axes}: a "blocks" subtree's stacked leaves become
+    `blocks.<i>.<key>` for each of the n_layers blocks, without the
+    leading "layers" axis (each block holds its own slice); other nested
+    dicts join their keys with ".", as named_parameters() does."""
+    out = {}
+    for key, sub in tree.items():
+        name = f"{prefix}{key}"
+        if key == "blocks":
+            for i in range(n_layers):
+                for k, axes in sub.items():
+                    out[f"{name}.{i}.{k}"] = tuple(axes[1:])
+        elif isinstance(sub, dict):
+            out.update(named_axes(sub, n_layers, f"{name}."))
+        else:
+            out[name] = tuple(sub)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # weights to and from the JAX package's pytree
 # ---------------------------------------------------------------------------
@@ -214,17 +280,28 @@ def _top_keys(model: GPT) -> list[str]:
     return [n for n, _ in model.named_parameters(recurse=False)]
 
 
+def _host(p):
+    """p as f32 numpy: a copy, never a view of a CPU parameter's memory."""
+    return p.detach().to("cpu", torch.float32, copy=True).numpy()
+
+
 def params_to_jax(model: GPT) -> dict:
     """The JAX package's params tree as f32 numpy arrays, block parameters
     stacked on a leading [L, ...] axis."""
-    def host(p):  # a copy, never a view of a CPU parameter's memory
-        return p.detach().to("cpu", torch.float32, copy=True).numpy()
-
-    params = {k: host(getattr(model, k)) for k in _top_keys(model)}
-    params["blocks"] = {key: np.stack([host(getattr(blk, key))
+    params = {k: _host(getattr(model, k)) for k in _top_keys(model)}
+    params["blocks"] = {key: np.stack([_host(getattr(blk, key))
                                        for blk in model.blocks])
                         for key in _BLOCK_KEYS}
     return params
+
+
+def _put(t, v, name):
+    """Copies the pytree leaf v into the parameter t of the same shape."""
+    v = np.asarray(v, np.float32)
+    if v.shape != tuple(t.shape):
+        raise ValueError(f"{name}: shape {v.shape} from the pytree, "
+                         f"{tuple(t.shape)} in the model")
+    t.copy_(torch.tensor(v))
 
 
 def load_jax_params(model: GPT, params: dict) -> GPT:
@@ -238,16 +315,9 @@ def load_jax_params(model: GPT, params: dict) -> GPT:
                          f"the model's {sorted(top)} + blocks "
                          f"{list(_BLOCK_KEYS)}")
 
-    def put(t, v, name):
-        v = np.asarray(v, np.float32)
-        if v.shape != tuple(t.shape):
-            raise ValueError(f"{name}: shape {v.shape} from the pytree, "
-                             f"{tuple(t.shape)} in the model")
-        t.copy_(torch.tensor(v))
-
     with torch.no_grad():
         for k in top:
-            put(getattr(model, k), params[k], k)
+            _put(getattr(model, k), params[k], k)
         for key in _BLOCK_KEYS:
             stacked = np.asarray(params["blocks"][key])
             if stacked.shape[0] != len(model.blocks):
@@ -255,7 +325,7 @@ def load_jax_params(model: GPT, params: dict) -> GPT:
                                  f"in the pytree, {len(model.blocks)} in "
                                  "the model")
             for i, blk in enumerate(model.blocks):
-                put(getattr(blk, key), stacked[i], f"blocks.{i}.{key}")
+                _put(getattr(blk, key), stacked[i], f"blocks.{i}.{key}")
     return model
 
 
