@@ -103,9 +103,9 @@ rank. Each phase prints one JSON line:
    batch beyond it), int8 within a band of exact with its saved bytes
    counted, and a float32 DP step (and, a card a rank, a sharded one)
    against a single-worker step at the combined batch.
-11. train_gpt2_elastic: the Trainer's fault tolerance on GPT-2 124M,
-   sharded over the same ranks, every rank the same tokens, 6 steps an
-   epoch: an uninterrupted control of 3 epochs in one generation,
+11. train_gpt2_elastic: the Trainer's fault tolerance on GPT-2 124M's
+   widths at 6 of its 12 layers, sharded over the same ranks, every rank
+   the same tokens, 6 steps an epoch: an uninterrupted control of 3 epochs in one generation,
    gang-reserved (ICI_RING, placed as PACK); an elastic run (epoch 1,
    save, epoch 2 with rank 1's process SIGKILLed by a driver timer
    halfway through, so train() re-gangs at full size and retries it, a
@@ -157,11 +157,35 @@ rank. Each phase prints one JSON line:
    no token dropped, and pipeline_apply of GPT-2's twelve blocks over
    pp = w stages, each against its dense or sequential control on the
    same card, forward and gradients, each with controls that must fail.
+   On four cards also the MoE transformer (the default widths, f32, 2 x
+   1024 tokens) on (tp 2, sp 2) and on (pp 2, sp 2), each against the
+   same weights on (sp 2, ep 2): logits, aux, loss and every gradient,
+   with each rank's gradients left un-summed over tp or pp as the
+   control.
 16. train_moe: the default MoETransformerConfig() (ring, bf16) at 4 x
    4096 tokens on the same ranks, (1, 1, 1, 1, 1) on one card and sp = 2
    x ep = 2 on four: AdamW steps, tokens/s, aux in (0.5, 4.0), the
    layernorm launches in every rank's process, ring against Ulysses
    logits on the same weights (the logits one step later beyond it).
+17. serve (after the rank actors' release): serve.start() and the
+   reference's integer ShardedTokenLM (vocab 32, hidden 8, inner 1024)
+   deployed with its paged KV arena on the card (kv_backend="torch",
+   2 GiB a rank, pages of 16, prefix sharing, 32 sequences a decode
+   batch): num_shards=1, then num_shards=2 with both members on this
+   card. Each takes 128 streams through the handle, 32 in flight
+   (prompts of 32-96 tokens, half behind one 64-token prefix, 32-96 new
+   tokens), and four sessions' second turns: tokens/s, TTFT and
+   decode-step p50 / p99 from the engine's histograms, prefix hits and
+   tokens saved, each rank's arena bytes and memory_allocated; every
+   stream equal to ShardedTokenLM.generate, and after the traffic only
+   the four retained sessions hold pages (pages in use equal to the
+   pages of their tables), no leak, and the same tables on every rank
+   of the gang. Then a follower of the gang is
+   killed mid-decode: its 8 open streams end in ReplicaGroupDied within
+   the group timeout, the dead leader holds no page, and the restarted
+   gang decodes exactly. Also the arena's one-row and 64-row append and
+   gather_sum ms on the card. Serve shuts down and its processes are
+   gone before the next phase.
 Then each phase's seconds (phase_seconds, with release_par_ranks: the
 rank actors of 15-16 killed, their processes gone and their cards free
 again), the card's name and power
@@ -2082,7 +2106,7 @@ def _bucket_of(n):
 # GPT-2 124M data-parallel, a rank a process, each at the single-GPU main
 # path's 12 x 1024 tokens: two ranks sharing a one-card machine's card,
 # or min(4, cards) ranks with a card each
-DP_STEPS, DP_PROFILE_STEPS = 10, 2
+DP_STEPS, DP_PROFILE_STEPS = 6, 2
 # the tokens/s of the layout with every rank in one process, measured on
 # an H100 80GB HBM3 at 700 W (PERF.md section 5: two ranks on one card;
 # four cards, a rank a card), printed beside this run's
@@ -2113,8 +2137,10 @@ DP_F32_BATCH = 2
 # normalised update turns a last-bit difference in a near-zero gradient
 # into a step of its learning rate, so rank 0's parameters after the
 # runs are held by relative L2. Its control must exceed the limit: a
-# sharded run over half the ranks, trained on half the batch (PERF.md
-# section 6 has both readings). Where ranks share a card, bit for bit.
+# sharded run over half the ranks, trained on half the batch. On four
+# H100 80GB HBM3 at 700 W, a card a rank, after the 11 steps of a run:
+# sharded 6.65e-5 from exact, the control 0.0818 (after 15 steps:
+# 1.20e-4 and 0.103). Where ranks share a card, bit for bit.
 DP_SHARDED_TOL = 1e-3
 
 
@@ -2128,7 +2154,8 @@ def gpt2_dp_operator_cls():
             from torch.backends import cuda, cudnn
 
             cuda.matmul.allow_tf32 = cudnn.allow_tf32 = config["tf32"]
-            cfg = gpt2_config(config["dtype"])
+            cfg = dataclasses.replace(gpt2_config(config["dtype"]),
+                                      n_layers=config.get("n_layers", 12))
             self.register(
                 model=transformer.params_from_jax(config["params"], cfg),
                 optimizer=config["optimizer"], loss_fn=transformer.loss_fn,
@@ -2448,6 +2475,10 @@ def phase_train_gpt2_dp(dev):
 # collective timeout of its trainers (how long a survivor waits for a
 # dead rank before its collective raises)
 ELASTIC_STEPS, ELASTIC_EPOCHS, ELASTIC_TIMEOUT_S = 6, 3, 10.0
+# GPT-2 124M's widths cut to 6 of its 12 layers: the phase checks
+# recovery bit for bit, which does not depend on depth, and its time is
+# generation starts and state moved, which depth scales
+ELASTIC_LAYERS = 6
 # where in the epoch the driver's timer kills rank 1: this share of the
 # control's steady epoch
 ELASTIC_KILL_AT = 0.5
@@ -2465,7 +2496,7 @@ def _elastic_trainer(params, ranks):
                    config={"params": params, "batch": GPT_BATCH,
                            "dtype": torch.bfloat16, "optimizer": _adamw,
                            "steps": ELASTIC_STEPS, "tf32": True,
-                           "token_seed": 10})
+                           "token_seed": 10, "n_layers": ELASTIC_LAYERS})
 
 
 def _generation(trainer):
@@ -2491,8 +2522,8 @@ def _digests(trainer):
 
 
 def phase_train_gpt2_elastic(dev, smi):
-    """GPT-2 124M, sharded over dp_workers() ranks, through the Trainer's
-    fault tolerance: an uninterrupted control of ELASTIC_EPOCHS epochs;
+    """GPT-2 124M's widths at ELASTIC_LAYERS layers, sharded over
+    dp_workers() ranks, through the Trainer's fault tolerance: an uninterrupted control of ELASTIC_EPOCHS epochs;
     an elastic run (epoch 1, save, epoch 2 with rank 1's process
     SIGKILLed by a timer partway through, so train() re-gangs, a resize
     to one rank, epoch 3); and a fresh one-rank trainer that loads the
@@ -2509,7 +2540,7 @@ def phase_train_gpt2_elastic(dev, smi):
     from ray_tpu_torch.train import sharding
     from ray_tpu_torch.util import placement_group_table
 
-    cfg = gpt2_config()
+    cfg = dataclasses.replace(gpt2_config(), n_layers=ELASTIC_LAYERS)
     model = transformer.GPT(cfg, seed=0)
     params = transformer.params_to_jax(model)
     del model
@@ -3683,10 +3714,80 @@ def _par_pipeline(rank, w, device=None):
     return res
 
 
+# the MoE transformer on the layouts with tp or pp > 1 (C2): each against
+# the same weights on (sp 2, ep 2), which splits the tokens the same way
+# over (dp, sp) and so routes with the same capacity; float32, TF32 off,
+# the default widths at C2_BATCH x C2_SEQ tokens
+C2_LAYOUTS = {"moe_tp2_sp2": {"tp": 2, "sp": 2},
+              "moe_pp2_sp2": {"pp": 2, "sp": 2}}
+C2_CONTROL_MESH = {"sp": 2, "ep": 2}
+C2_BATCH, C2_SEQ = 2, 1024
+
+
+def _par_moe_layout(rank, w, shape, device=None):
+    """The MoE transformer on `shape` against the same weights and
+    tokens on C2_CONTROL_MESH: the logits, aux and loss, and every
+    parameter's gradient (the experts' gathered over ep). Its control:
+    the same run with each rank's parameter gradients left un-summed
+    over the layout's tp or pp axis."""
+    from ray_tpu_torch.models import moe_transformer as M
+    from ray_tpu_torch.parallel import mesh as meshlib
+    from ray_tpu_torch.parallel import spmd
+
+    # TF32 off (not through torch.backends: a by-value function that
+    # names it cannot be pickled to the ranks)
+    torch.set_float32_matmul_precision("highest")
+    cfg = dataclasses.replace(M.MoETransformerConfig(), dtype=torch.float32,
+                              max_seq=C2_SEQ)
+    axis = "tp" if shape.get("tp", 1) > 1 else "pp"
+
+    def run(mesh_shape, unsummed=None):
+        mesh = meshlib.MeshSpec(**mesh_shape).build(device)
+        dev = meshlib.mesh_device(mesh)
+        model = M.MoETransformer(cfg, mesh, seed=0)
+        gen = torch.Generator(device=dev).manual_seed(12)
+        tokens = torch.randint(0, cfg.vocab_size, (C2_BATCH, C2_SEQ),
+                               generator=gen, device=dev)
+        summed = spmd._PVary.apply
+        if unsummed:
+            def apply(x, lay, axes):
+                kept = tuple(a for a in axes if a != unsummed)
+                return summed(x, lay, kept) if kept else x
+            spmd._PVary.apply = apply
+        try:
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits, aux = M.apply(model, tokens)
+            loss, _ = M.loss_fn(model, tokens)
+            loss.backward()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            spmd._PVary.apply = summed
+        lay = meshlib.layout(mesh)
+        grads = {n: (spmd._all_gather(p.grad, lay, ("ep",), 0)
+                     if n.rsplit(".", 1)[-1] in M._EXPERT_KEYS else p.grad)
+                 for n, p in model.named_parameters()}
+        return logits, aux.detach(), loss.detach(), grads, seconds
+
+    logits, aux, loss, grads, seconds = run(shape)
+    want, aux_w, loss_w, grads_w, _ = run(C2_CONTROL_MESH)
+    _, _, _, wrong, _ = run(shape, unsummed=axis)
+    return {"mesh": shape, "against_mesh": C2_CONTROL_MESH,
+            "out": _rel_max(logits, want),
+            "aux": float(abs(aux - aux_w) / aux_w),
+            "loss": float(abs(loss - loss_w) / loss_w),
+            "dparams_max": max(_rel_l1(grads[n], grads_w[n])
+                               for n in grads_w),
+            "control_unsummed_dparams": max(_rel_l1(wrong[n], grads_w[n])
+                                            for n in grads_w),
+            "unsummed_axis": axis, "seconds_fwd_bwd": seconds}
+
+
 def _par_case_ok(r, w):
     """One rank's readings of a parallel case within PAR_TOL, its
     controls beyond it."""
-    outs = [v for k, v in r.items() if k in ("out", "aux")]
+    outs = [v for k, v in r.items() if k in ("out", "aux", "loss")]
     grads = [v for k, v in r.items() if k.startswith("d")
              and not k.startswith("dparams")] + (
         [r["dparams_max"]] if "dparams_max" in r else [])
@@ -3715,10 +3816,14 @@ def phase_parallel(dev):
         "moe_apply": (_par_moe,),
         "pipeline": (_par_pipeline,),
     }
+    if w == 4:
+        cases.update({name: (_par_moe_layout, shape)
+                      for name, shape in C2_LAYOUTS.items()})
     fields = {"ranks": w, "cards": cards, "tol": PAR_TOL,
               "mesh_note": None if w > 1 else (
                   "one card: the w = 1 mesh through the same code; NCCL "
-                  "refuses two ranks on one card")}
+                  "refuses two ranks on one card; the MoE model's tp and "
+                  "pp layouts need four cards")}
     failed = []
     for name, (fn, *args) in cases.items():
         # every rank assembles the global outputs and gradients itself:
@@ -3830,6 +3935,358 @@ def phase_train_moe(dev):
     return {"layernorm": sum(g["launches"]["layernorm"] for g in got)}
 
 
+# ---------------------------------------------------------------------------
+# Serve: the streaming tier with its KV arena on the card
+# ---------------------------------------------------------------------------
+
+# the reference's serve model (integer weights) at inner 1024, so that a
+# rank's KV row is 1024 / num_shards f32 wide
+SERVE_MODEL = {"vocab": 32, "hidden": 8, "inner": 1024}
+SERVE_SEED = 17
+SERVE_STREAMS, SERVE_INFLIGHT, SERVE_SESSIONS = 128, 32, 4
+SERVE_PREFIX = 64
+# prompt + max_tokens <= 192 keeps every logit an integer below
+# 8 · hidden · inner · 192 ≈ 1.26e7 < 2^24: the decode is exact in f32
+SERVE_MAX_LEN = 192
+SERVE_PAGE, SERVE_ARENA_BYTES = 16, 2 << 30
+SERVE_GROUP_TIMEOUT_S = 5.0
+SERVE_KILL_STREAMS = 8
+
+
+def _serve_traffic(rng):
+    """SERVE_STREAMS requests: prompts of 32-96 tokens, half of them
+    behind one SERVE_PREFIX-token prefix (a system prompt), max_tokens
+    32-96 within SERVE_MAX_LEN; SERVE_SESSIONS of them open a session
+    (short enough for a second turn within SERVE_MAX_LEN)."""
+    vocab = SERVE_MODEL["vocab"]
+    prefix = rng.integers(0, vocab, SERVE_PREFIX).tolist()
+    reqs = []
+    for i in range(SERVE_STREAMS):
+        session = f"s{i}" if i < SERVE_SESSIONS else None
+        if session:
+            n, m = int(rng.integers(32, 49)), int(rng.integers(32, 49))
+            prompt = rng.integers(0, vocab, n).tolist()
+        elif i % 2:
+            n = int(rng.integers(SERVE_PREFIX, 97))
+            prompt = prefix + rng.integers(0, vocab, n - SERVE_PREFIX).tolist()
+        else:
+            n = int(rng.integers(32, 97))
+            prompt = rng.integers(0, vocab, n).tolist()
+        if not session:
+            m = int(rng.integers(32, min(96, SERVE_MAX_LEN - n) + 1))
+        req = {"prompt": prompt, "max_tokens": m}
+        if session:
+            req["session"] = session
+        reqs.append(req)
+    return reqs
+
+
+def _serve_stream(handle, req):
+    """(tokens, seconds to the first token, seconds) of one stream."""
+    t0 = time.perf_counter()
+    toks, first = [], None
+    for tok in handle.stream(req, timeout=120.0):
+        if first is None:
+            first = time.perf_counter() - t0
+        toks.append(tok)
+    return toks, first, time.perf_counter() - t0
+
+
+def _serve_members(client, name, shards):
+    """The deployment's ranks: every gang member, or the replica."""
+    import ray_tpu_torch
+
+    if shards > 1:
+        gangs = ray_tpu_torch.get(
+            client._controller.get_gang_members.remote(name), timeout=60)
+        return gangs[0]
+    state = ray_tpu_torch.get(
+        client._controller.get_routing_state.remote(name), timeout=60)
+    return list(state["backends"][name]["replicas"])
+
+
+def _hist_ms(snap):
+    """p50, p99 (bucket bounds) and the mean of a histogram, in ms."""
+    from ray_tpu_torch._private import stats
+
+    return {"p50_ms": stats.percentile(snap, 0.5) * 1e3,
+            "p99_ms": stats.percentile(snap, 0.99) * 1e3,
+            "mean_ms": snap["sum"] / max(snap["count"], 1) * 1e3,
+            "count": snap["count"]}
+
+
+def _serve_deployment(client, shards, model, reqs, want, pids):
+    """One deployment of the model on the card: SERVE_STREAMS streams,
+    SERVE_INFLIGHT in flight, then the sessions' second turns; its
+    readings and whether every stream decoded exactly and every rank
+    ended with only the retained sessions' pages in use, the same
+    tables as the other ranks and no leak."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+
+    name = f"lm{shards}"
+    width = SERVE_MODEL["inner"] // shards
+    pages = SERVE_ARENA_BYTES // (SERVE_PAGE * width * 4)
+    t0 = time.perf_counter()
+    client.create_backend(name, type(model), model.embed, model.w_up,
+                          model.w_out, config=serve.BackendConfig(
+                              streaming=True, num_shards=shards,
+                              kv_backend="torch",
+                              num_gpus_per_shard=1.0 / (2 * shards)
+                              if shards > 1 else 1.0,
+                              kv_page_size=SERVE_PAGE, kv_pages_total=pages,
+                              prefix_sharing=True, max_decode_batch=32,
+                              max_waiting_sequences=2 * SERVE_INFLIGHT,
+                              shard_group_timeout_s=SERVE_GROUP_TIMEOUT_S))
+    client.create_endpoint(name, backend=name)
+    handle = client.get_handle(name)
+    members = _serve_members(client, name, shards)
+    ray_tpu_torch.get([m.engine_state.remote() for m in members],
+                      timeout=300)  # every rank up, its arena allocated
+    deploy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SERVE_INFLIGHT) as pool:
+        got = list(pool.map(lambda r: _serve_stream(handle, r), reqs))
+    wall = time.perf_counter() - t0
+    turns = [{"prompt": [5, 7, 11, 13], "max_tokens": 16,
+              "session": r["session"]} for r in reqs if r.get("session")]
+    with ThreadPoolExecutor(len(turns)) as pool:
+        second = list(pool.map(lambda r: _serve_stream(handle, r), turns))
+    first_turn = {r["session"]: r["prompt"] + got[i][0]
+                  for i, r in enumerate(reqs) if r.get("session")}
+    want2 = [model.generate(first_turn[t["session"]] + t["prompt"],
+                            t["max_tokens"]) for t in turns]
+    exact = ([g[0] for g in got] == want
+             and [g[0] for g in second] == want2)
+    sessions = {f"sess:{t['session']}" for t in turns}
+    deadline = time.monotonic() + 30.0
+    while True:  # the last retirements may trail the streams' ends
+        states = ray_tpu_torch.get(
+            [m.engine_state.remote() for m in members], timeout=60)
+        if (all(set(st["kv"]["owners"]) == sessions for st in states)
+                or time.monotonic() > deadline):
+            break
+        time.sleep(0.1)
+    pids.update(st["pid"] for st in states)
+    snap = ray_tpu_torch.get(members[0].stats_snapshot.remote(), timeout=60)
+    tokens = sum(len(g[0]) for g in got)
+    ttft = sorted(g[1] for g in got)
+    fields = {
+        "num_shards": shards, "deploy_s": deploy_s, "streams": len(got),
+        "second_turns": len(second), "wall_s": wall, "tokens": tokens,
+        "tokens_s": tokens / wall,
+        "ttft": _hist_ms(snap["serve.ttft_s"]),
+        "decode_step": _hist_ms(snap["serve.decode_step_s"]),
+        "client_ttft_p50_ms": ttft[len(ttft) // 2] * 1e3,
+        "client_ttft_p99_ms": ttft[int(0.99 * (len(ttft) - 1))] * 1e3,
+        "prefix": states[0]["kv"]["prefix"],
+        "ranks": [{"pid": st["pid"], "device": st["kv"].get("device"),
+                   "arena_bytes": st["kv"]["arena_bytes"],
+                   "cuda_memory_allocated":
+                       st["kv"].get("cuda_memory_allocated"),
+                   "pages_total": st["kv"]["pages_total"],
+                   "width": st["kv"]["width"], "steps": st["steps"]}
+                  for st in states],
+        "after": [{"pages_in_use": st["kv"]["pages_in_use"],
+                   "owners": st["kv"]["owners"],
+                   "kv_leaked": st["kv_leaked"]} for st in states],
+        "exact": exact}
+    ok = (exact and all(st["kv"]["backend"] == "torch"
+                        and st["kv"]["device"].startswith("cuda")
+                        and st["kv"]["arena_bytes"] >= SERVE_ARENA_BYTES
+                        for st in states)
+          # only the retained sessions hold pages, none shared between
+          # them, no leak, and every rank of a gang holds the same tables
+          and all(set(a["owners"]) == sessions
+                  and a["pages_in_use"] == sum(a["owners"].values())
+                  and a["kv_leaked"] == [] for a in fields["after"])
+          and all(a["owners"] == fields["after"][0]["owners"]
+                  for a in fields["after"])
+          and fields["prefix"]["hits"] > 0)
+    return name, members, fields, ok
+
+
+def _serve_kill(client, name, model, pids):
+    """A follower of the gang killed mid-decode (serve.decode_step=exit
+    armed in its process): every open stream ends in ReplicaGroupDied
+    within the group timeout, the dead leader's engine holds no page, and
+    a fresh stream on the restarted gang decodes exactly with no page
+    left in use."""
+    import threading
+
+    import ray_tpu_torch
+    from ray_tpu_torch import exceptions as exc
+
+    old = _serve_members(client, name, 2)
+    handle = client.get_handle(name)
+    errors, started = [], threading.Barrier(SERVE_KILL_STREAMS + 1)
+
+    def one(i):
+        try:
+            gen = handle.stream({"prompt": [i + 1] * 32, "max_tokens": 150},
+                                timeout=120.0)
+            next(gen)
+            started.wait(60)
+            for _ in gen:
+                pass
+            errors.append(None)
+        except BaseException as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(SERVE_KILL_STREAMS)]
+    for t in threads:
+        t.start()
+    started.wait(60)
+    t_arm = time.perf_counter()
+    ray_tpu_torch.get(old[1].arm_failpoint.remote(
+        "serve.decode_step", "exit", nth=2), timeout=60)
+    for t in threads:
+        t.join(120)
+    to_error_s = time.perf_counter() - t_arm
+    dead = ray_tpu_torch.get(old[0].engine_state.remote(), timeout=60)
+    deadline = time.monotonic() + 120
+    while True:
+        try:
+            out = [tok for tok in handle.stream(
+                {"prompt": [3, 5, 9], "max_tokens": 40}, timeout=30.0)]
+            break
+        except (exc.ReplicaGroupDied, exc.ActorDiedError,
+                exc.ActorUnavailableError, exc.SequenceAborted,
+                TimeoutError, RuntimeError):
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.5)
+    restart_s = time.perf_counter() - t_arm
+    fresh = _serve_members(client, name, 2)
+    states = ray_tpu_torch.get([m.engine_state.remote() for m in fresh],
+                               timeout=60)
+    pids.update(st["pid"] for st in states)
+    fields = {"streams": SERVE_KILL_STREAMS,
+              "errors": sorted({type(e).__name__ for e in errors
+                                if e is not None}),
+              "unfinished": sum(e is None for e in errors),
+              "arm_to_errors_s": to_error_s,
+              "group_timeout_s": SERVE_GROUP_TIMEOUT_S,
+              "dead_leader": {"dead": dead["dead"][:200],
+                              "pages_in_use": dead["kv"]["pages_in_use"],
+                              "kv_leaked": dead["kv_leaked"],
+                              "owners": dead["kv"]["owners"]},
+              "restart_to_exact_s": restart_s,
+              "fresh_exact": out == model.generate([3, 5, 9], 40),
+              "fresh_ranks": [{"pages_in_use": st["kv"]["pages_in_use"],
+                               "kv_leaked": st["kv_leaked"]}
+                              for st in states],
+              "fresh_is_new": fresh[0] != old[0]}
+    ok = (len(errors) == SERVE_KILL_STREAMS
+          and all(isinstance(e, exc.ReplicaGroupDied) for e in errors)
+          and to_error_s <= SERVE_GROUP_TIMEOUT_S + 2.0
+          and "ReplicaGroupDied" in dead["dead"]
+          and dead["kv"]["pages_in_use"] == 0 and not dead["kv_leaked"]
+          and not dead["kv"]["owners"]
+          and fields["fresh_exact"] and fields["fresh_is_new"]
+          and all(r["pages_in_use"] == 0 and r["kv_leaked"] == []
+                  for r in fields["fresh_ranks"]))
+    return fields, ok
+
+
+def _kv_write_ms(dev):
+    """The torch arena's writes and read on the card at a num_shards=2
+    rank's shape (SERVE_ARENA_BYTES, rows 512 f32): ms of one decode
+    step's one-row append, of a 64-row prefill append and of one
+    gather_sum, each a host wall time that ends with the card synced
+    (medians of 200, 50 and 200)."""
+    import numpy as np
+
+    from ray_tpu_torch.serve.kv_cache import PagedKVCache
+
+    width = SERVE_MODEL["inner"] // 2
+    pages = SERVE_ARENA_BYTES // (SERVE_PAGE * width * 4)
+    kv = PagedKVCache(pages, SERVE_PAGE, width, backend="torch")
+    rows = np.ones((64, width), np.float32)
+
+    def med(fn, n):
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    try:
+        kv.alloc_table("w")
+        kv.append("w", rows[:1])
+        torch.cuda.synchronize()
+        one = med(lambda: kv.append("w", rows[0]), 200)
+        kv.alloc_table("p")
+        prefill = med(lambda: kv.append("p", rows), 50)
+        read = med(lambda: kv.gather_sum("w"), 200)
+        return {"arena_bytes": kv.nbytes, "device": str(kv._pages.device),
+                "row_f32": width, "append_1_row_ms": one,
+                "append_64_rows_ms": prefill, "gather_sum_ms": read,
+                "gather_sum_rows": kv.length("w")}
+    finally:
+        kv.close()
+        del kv
+        torch.cuda.empty_cache()
+
+
+def phase_serve(dev):
+    """Serve on the card through the handle: the reference's
+    ShardedTokenLM at SERVE_MODEL, its KV arena a tensor on the card
+    (kv_backend="torch", SERVE_ARENA_BYTES a rank), num_shards=1 and then
+    num_shards=2 (both members on this card), SERVE_STREAMS streams each;
+    every stream equal to ShardedTokenLM.generate; then a follower killed
+    mid-decode. Serve shuts down and its processes are gone, their cards
+    free, before the next phase."""
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.engine import ShardedTokenLM
+
+    model = ShardedTokenLM.make(SERVE_SEED, **SERVE_MODEL)
+    reqs = _serve_traffic(np.random.default_rng(SERVE_SEED))
+    t0 = time.perf_counter()
+    want = [model.generate(r["prompt"], r["max_tokens"]) for r in reqs]
+    reference_s = time.perf_counter() - t0
+    fields = {"model": SERVE_MODEL, "reference_generate_s": reference_s,
+              "kv_write": _kv_write_ms(dev)}
+    pids, oks = set(), []
+    client = serve.start()
+    try:
+        for shards in (1, 2):
+            name, _, got, ok = _serve_deployment(client, shards, model,
+                                                 reqs, want, pids)
+            fields[f"shards_{shards}"] = got
+            oks.append(ok)
+            if shards == 2:
+                fields["kill"], ok = _serve_kill(client, name, model, pids)
+                oks.append(ok)
+            client.delete_endpoint(name)
+            client.delete_backend(name)
+    finally:
+        t0 = time.perf_counter()
+        client.shutdown()
+        want_gpus = ray_tpu_torch.cluster_resources().get("GPU", 0)
+        deadline = time.monotonic() + 60
+        while (ray_tpu_torch.available_resources().get("GPU", 0) < want_gpus
+               or any(_running(p) for p in pids)):
+            if time.monotonic() > deadline:
+                fields["left_running"] = [p for p in pids if _running(p)]
+                emit("serve", **fields)
+                raise TimeoutError("serve's processes still hold the card "
+                                   "60 s after its shutdown")
+            time.sleep(0.2)
+        fields["shutdown_s"] = time.perf_counter() - t0
+    emit("serve", **fields)
+    if not all(oks):
+        raise RuntimeError(f"serve: {oks}: {fields}")
+
+
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "bn_bwd_sums": ("ray_tpu_torch/ops/csrc/bn_bwd_sums.cu",
                     "ray_tpu/ops/batchnorm.py:43"),
@@ -3854,7 +4311,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
 # the phases that need the runtime (phase_runtime starts it)
 RUNTIME_PHASES = ("runtime", "collectives_procs", "train", "train_ingest",
                   "train_gpt2", "train_vit", "train_bert", "parallel",
-                  "train_moe", "train_gpt2_dp", "train_gpt2_mesh",
+                  "train_moe", "serve", "train_gpt2_dp", "train_gpt2_mesh",
                   "train_gpt2_elastic")
 
 
@@ -3933,6 +4390,8 @@ def main():
             add_launches(timed("train_moe", phase_train_moe, dev))
         if _PAR_RANKS:
             timed("release_par_ranks", release_par_ranks)
+        if run("serve"):
+            timed("serve", phase_serve, dev)
         if run("train_gpt2_dp"):
             add_launches(timed("train_gpt2_dp", phase_train_gpt2_dp, dev))
         if run("train_gpt2_mesh"):

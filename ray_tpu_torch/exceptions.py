@@ -103,3 +103,62 @@ class PlacementGroupInfeasibleError(RayTpuError):
     def __reduce__(self):
         return (PlacementGroupInfeasibleError,
                 (self.pg_id_hex, self.detail))
+
+
+class ServeOverloadedError(RayTpuError):
+    """A Serve endpoint shed this request at admission: the router's
+    bounded queue was already at `max_queued_requests` depth. The typed
+    503 of the serving tier — callers should back off `retry_after_s`
+    and retry; the HTTP proxy maps it to 503 + Retry-After."""
+
+    def __init__(self, endpoint: str = "", queued: int = 0,
+                 max_queued: int = 0, retry_after_s: float = 1.0):
+        self.endpoint = endpoint
+        self.queued = queued
+        self.max_queued = max_queued
+        self.retry_after_s = retry_after_s
+        super().__init__(
+            f"endpoint {endpoint!r} overloaded: {queued} queued >= "
+            f"max_queued_requests={max_queued}; retry after "
+            f"{retry_after_s:.1f}s")
+
+    def __reduce__(self):
+        return (ServeOverloadedError,
+                (self.endpoint, self.queued, self.max_queued,
+                 self.retry_after_s))
+
+
+class SequenceAborted(RayTpuError):
+    """A streaming inference sequence was aborted before it finished:
+    the client disconnected mid-stream, the KV page pool was exhausted,
+    or the hosting engine shut down. The sequence's KV pages are freed
+    on the abort path; any reader still parked on the stream surfaces
+    this instead of hanging."""
+
+    def __init__(self, seq_id: str = "", reason: str = ""):
+        self.seq_id = seq_id
+        self.reason = reason
+        super().__init__(
+            f"sequence {seq_id or '?'} aborted: {reason or 'aborted'}")
+
+    def __reduce__(self):
+        return (SequenceAborted, (self.seq_id, self.reason))
+
+
+class ReplicaGroupDied(RayTpuError):
+    """A sharded Serve replica group lost a member (or its leader) while
+    this request was in flight. The whole gang is being restarted by the
+    controller; the request did NOT complete. Retryable once the gang is
+    back (the HTTP proxy maps it to 503)."""
+
+    def __init__(self, backend: str = "", group: str = "",
+                 reason: str = ""):
+        self.backend = backend
+        self.group = group
+        self.reason = reason
+        super().__init__(
+            f"replica group {group or '?'} of backend {backend!r} died "
+            f"mid-request: {reason or 'member lost'}")
+
+    def __reduce__(self):
+        return (ReplicaGroupDied, (self.backend, self.group, self.reason))

@@ -1,8 +1,8 @@
 """Long-context MoE transformer; port of ray_tpu/models/moe_transformer.py.
 
 Switch-style decoder: every block is [attention over the sp axis] +
-[top-1 MoE MLP over the ep axis], on a dp x sp x ep mesh. Attention is
-selectable:
+[top-1 MoE MLP over the ep axis], on any mesh of the five axes. Attention
+is selectable:
   "ring"    — ppermute ring over sequence shards (huge S)
   "ulysses" — all-to-all head/sequence transpose (short rings)
   "dense"   — every rank attends against the gathered K/V (tests, sp=1)
@@ -18,14 +18,20 @@ expert MLP takes the reference's token rows: the flattened [B*T, D] rows
 split over ("dp", "sp"), dp major, which differ from the attention block
 when B/dp > 1, so each layer moves the rows between the sp ranks there
 and back (`spmd.all_to_all_rows`); the capacity comes from those local
-rows, as the reference's.
+rows, as the reference's. Over tp, ring attention takes the rank's slice
+of the heads (the reference's spec P(dp, sp, tp, None)) and gathers the
+heads back; Ulysses, the MoE MLP and the projections keep heads and rows
+whole, so the tp ranks compute them alike (the reference's GSPMD
+replicates them, or shards the projections and sums: the same values).
+Over pp every computation is replicated, as GSPMD replicates it.
 
 Gradients are the global loss's on every rank: each parameter enters a
 step through `spmd.pvary` (its cotangent psum'd over the axes it is
 replicated on), and the loss leaves through shard_map's output rule.
 
 Parameters are named as the JAX pytree's keys, blocks unstacked; a rank
-holds its ep slice of `w_in`/`w_out` ([E/ep, ...]). Needs tp = pp = 1.
+holds its ep slice of `w_in`/`w_out` ([E/ep, ...]) and every other
+parameter whole.
 """
 
 from __future__ import annotations
@@ -41,7 +47,8 @@ from torch import nn
 from ray_tpu_torch.models import transformer as tfm
 from ray_tpu_torch.ops import layernorm as ln
 from ray_tpu_torch.parallel import moe, spmd
-from ray_tpu_torch.parallel.mesh import (P, current_layout, layout, manual,
+from ray_tpu_torch.parallel.mesh import (P, axis_index, axis_size,
+                                         current_layout, layout, manual,
                                          mesh_device)
 from ray_tpu_torch.parallel.ring_attention import ring_attention
 from ray_tpu_torch.parallel.ulysses import ulysses_attention
@@ -103,8 +110,8 @@ class MoEBlock(nn.Module):
 
 
 class MoETransformer(nn.Module):
-    """This rank's part of the model on `mesh` (a MeshSpec's DeviceMesh
-    with tp = pp = 1): every parameter but its ep slice of the experts.
+    """This rank's part of the model on `mesh` (a MeshSpec's DeviceMesh):
+    every parameter but its ep slice of the experts.
     The weights are drawn on the CPU from `seed` (the same on every rank)
     and moved to the mesh's device."""
 
@@ -114,9 +121,9 @@ class MoETransformer(nn.Module):
             raise ValueError(f"unknown attention {cfg.attention!r}: "
                              "expected 'ring', 'ulysses', or 'dense'")
         lay = layout(mesh)
-        if lay.size(("tp", "pp")) != 1:
-            raise ValueError("the MoE transformer runs on a dp x sp x ep "
-                             f"mesh; got {lay.sizes}")
+        if cfg.attention == "ring" and cfg.n_heads % lay.size("tp"):
+            raise ValueError(f"{cfg.n_heads} heads do not split over "
+                             f"tp = {lay.size('tp')}")
         ep = lay.size("ep")
         if cfg.num_experts % ep:
             raise ValueError(f"{cfg.num_experts} experts do not split over "
@@ -228,9 +235,22 @@ def _dense_attention(q, k, v):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
 
 
+def _ring_tp(q, k, v):
+    """Ring attention over sp on the rank's tp slice of the heads, the
+    heads gathered back over tp (its transpose: psum_scatter)."""
+    tp = axis_size("tp")
+    if tp == 1:
+        return ring_attention(q, k, v, axis_name="sp", causal=True)
+    hl = q.shape[2] // tp
+    i = axis_index("tp")
+    q, k, v = (z[:, :, i * hl:(i + 1) * hl] for z in (q, k, v))
+    out = ring_attention(q, k, v, axis_name="sp", causal=True)
+    return spmd.all_gather(out, "tp", axis=2)
+
+
 def _attend(q, k, v, attention):
     if attention == "ring":
-        return ring_attention(q, k, v, axis_name="sp", causal=True)
+        return _ring_tp(q, k, v)
     if attention == "ulysses":
         return ulysses_attention(q, k, v, axis_name="sp", causal=True)
     if attention == "dense":

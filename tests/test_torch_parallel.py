@@ -36,6 +36,10 @@ Cases:
   ring, Ulysses and dense attention against the reference's ring; loss
   and every parameter's gradient (wte replicated, w_in sharded over ep)
   against jax.grad of the reference loss_fn.
+- the same model with ring attention on (tp 2, sp 2), heads split over
+  tp, and on (pp 2, ep 2), everything replicated over pp: logits, aux,
+  loss and every gradient against the reference on meshes of the same
+  shape.
 Every rank returns the global results, which must agree across ranks.
 
 Tolerances (float32, the same arithmetic in another order):
@@ -191,6 +195,7 @@ ATT = {"ring-causal": ("ring", True, {"dp": 2, "sp": 2}, (4, 16, 2, 8)),
 PIPE = {"pp4": {"pp": 4}, "dp2-pp2": {"dp": 2, "pp": 2}}
 MOE_MESH = {"dp": 2, "ep": 2}
 MODEL_MESH = {"sp": 2, "ep": 2}
+TP_PP_MESHES = {"tp2-sp2": {"tp": 2, "sp": 2}, "pp2-ep2": {"pp": 2, "ep": 2}}
 MODEL_TOKENS = (4, 64)
 COLLECTIVES = {
     # name: (mesh, global input shape, in spec, out spec)
@@ -328,9 +333,9 @@ def _jax_moe(data):
             **{f"d{k}": np.asarray(g) for k, g in zip(keys, grads)}}
 
 
-def _jax_model(data):
+def _jax_model(data, shape=MODEL_MESH):
     cfg = jmoe.TINY_MOE
-    mesh = _jmesh(MODEL_MESH)
+    mesh = _jmesh(shape)
     params = jax.device_put(
         jax.tree.map(jnp.asarray, data["model"]["params"]),
         jsh.tree_shardings(mesh, jmoe.logical_axes(cfg)))
@@ -353,7 +358,9 @@ def jax_results(data):
                     q, k, v, _jmesh({"sp": 4}), causal=False))(
                 *(jnp.asarray(data["ring-vs-ulysses"][k]) for k in "qkv"))),
             "pipe": {case: _jax_pipe(case, data) for case in PIPE},
-            "moe": _jax_moe(data), "model": _jax_model(data)}
+            "moe": _jax_moe(data), "model": _jax_model(data),
+            "tp_pp": {name: _jax_model(data, shape)
+                      for name, shape in TP_PP_MESHES.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -471,6 +478,25 @@ def _rank_model(rank, data):
     return out
 
 
+def _rank_model_tp_pp(rank, data):
+    tokens = torch.from_numpy(data["model"]["tokens"])
+    out = {}
+    for name, shape in TP_PP_MESHES.items():
+        mesh = _tmesh(shape)
+        model = tmoe.params_from_jax(data["model"]["params"], tmoe.TINY_MOE,
+                                     mesh)
+        with torch.no_grad():
+            logits, aux = tmoe.apply(model, tokens)
+        loss, _ = tmoe.loss_fn(model, tokens)
+        loss.backward()
+        out[name] = {"logits": logits.numpy(), "aux": aux.item(),
+                     "loss": loss.item(),
+                     "grads": {n: p.grad.numpy()
+                               for n, p in model.named_parameters()},
+                     "ep_index": tmesh.layout(mesh).index("ep")}
+    return out
+
+
 @pytest.fixture(scope="module")
 def pool():
     p = RankPool()
@@ -487,7 +513,8 @@ def port_results(pool, data):
             "ring-vs-ulysses": pool.run(_rank_ring_vs_ulysses, data),
             "pipe": pool.run(_rank_pipe, data),
             "moe": pool.run(_rank_moe, data),
-            "model": pool.run(_rank_model, data)}
+            "model": pool.run(_rank_model, data),
+            "tp_pp": pool.run(_rank_model_tp_pp, data)}
 
 
 def _rel_max(got, want):
@@ -666,6 +693,26 @@ def test_moe_model_grads_match_jax(jax_results, port_results, leaf):
                 np.testing.assert_allclose(r["grads"][n],
                                            ranks[0]["grads"][n],
                                            rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.parametrize("mesh", list(TP_PP_MESHES))
+@pytest.mark.parametrize("quantity", ["logits", "aux", "loss"])
+def test_moe_model_on_tp_pp_matches_jax(jax_results, port_results, mesh,
+                                        quantity):
+    want = jax_results["tp_pp"][mesh][quantity]
+    for rank in port_results["tp_pp"]:
+        assert _rel_max(rank[mesh][quantity], want) <= OUT_TOL, (mesh,
+                                                                 quantity)
+
+
+@pytest.mark.parametrize("mesh", list(TP_PP_MESHES))
+@pytest.mark.parametrize("leaf", MODEL_LEAVES)
+def test_moe_model_on_tp_pp_grads_match_jax(jax_results, port_results, mesh,
+                                            leaf):
+    ranks = [r[mesh] for r in port_results["tp_pp"]]
+    err = _rel_l1(_leaf(_model_grads(ranks), leaf),
+                  _leaf(jax_results["tp_pp"][mesh]["grads"], leaf))
+    assert err <= GRAD_TOL, (mesh, leaf, err)
 
 
 def test_moe_model_params_round_trip(data, port_results):
