@@ -19,7 +19,9 @@ GPT-2 data-parallel over two ranks in two processes that share the card
 gradient collectives in the hand-written ring kernels across the
 processes. The parallel axes (ring attention, Ulysses, expert routing,
 the pipeline) and the MoE transformer run SPMD on rank actors, a card a
-rank. Each phase prints one JSON line:
+rank; Serve decodes with its KV arena on the card; RLlib's PPO and
+IMPALA learn CartPole with the learner on the card, fed by CPU rollout
+actors. Each phase prints one JSON line:
 
 1. device: nvidia-smi's name and power limit, torch, CUDA and nvcc.
 2. build: nvcc of every source, one process each, all started together.
@@ -186,6 +188,20 @@ rank. Each phase prints one JSON line:
    gang decodes exactly. Also the arena's one-row and 64-row append and
    gather_sum ms on the card. Serve shuts down and its processes are
    gone before the next phase.
+18. rllib (after serve): RLlib's on-policy path. PPO's learner on the
+   card (TF32 off) against the CPU from the same weights and a 256-step
+   CartPole batch: compute_gradients, each leaf within RL_STEP_TOL by
+   relative L2, then one learn_on_batch: the weights and the update
+   within it, the loss and its terms within it of the loss. Then
+   PPOTrainer and ImpalaTrainer at rlbench's configuration (CartPole-v1,
+   2 CPU rollout actors x 2 envs, the fcnet), the learner in this
+   process on the card: PPO past RL_BAR after 8 train()s, IMPALA's best
+   past it in 20, each actor's weights equal to the learner's after
+   PPO's broadcast, each actor with no card (CUDA_VISIBLE_DEVICES empty,
+   its policy on the CPU); over the train()s after the first (7 and 19,
+   rlbench.measure): env-steps/s, the learner's grad s and ms a
+   learn_on_batch, its busy share and utilization, and its
+   memory_allocated. The path launches no hand-written kernel.
 Then each phase's seconds (phase_seconds, with release_par_ranks: the
 rank actors of 15-16 killed, their processes gone and their cards free
 again), the card's name and power
@@ -198,6 +214,7 @@ non-zero and prints no result. Without CUDA it exits 2 at once.
 """
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -4287,6 +4304,188 @@ def phase_serve(dev):
         raise RuntimeError(f"serve: {oks}: {fields}")
 
 
+RL_STEP_TOL = 1e-5  # the card's gradients and step against the CPU's
+RL_BAR = 60.0  # episode_reward_mean: the bar of the reference's own tests
+RL_PPO_TRAINS = 8  # tests/test_rllib.py:68-89: > 60 after 8 train()s
+RL_IMPALA_STEPS = 20  # tests/test_rllib_agents.py:142-166: within 20
+
+
+def _rl_whoami(worker):
+    """Run in a rollout actor: what it sees of the cards."""
+    return {"pid": os.getpid(),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "cuda_available": torch.cuda.is_available(),
+            "policy_device": str(worker.policy.device)}
+
+
+def _rl_flat(weights):
+    from ray_tpu_torch.rllib.policy.torch_policy import tree_leaves
+
+    return torch.cat([torch.tensor(v).reshape(-1).double()
+                      for v in tree_leaves(weights)])
+
+
+def _rl_step_check():
+    """PPO's learner on the card (TF32 off) against the CPU, from the same
+    weights and the same batch (256 CartPole steps sampled on the CPU,
+    GAE included): first compute_gradients, each leaf by relative L2,
+    then one learn_on_batch: the weights after it, the update itself (w
+    - w0: Adam's first step is about lr * sign(g), so a gradient of the
+    wrong size but the right sign shows only in the gradients), the loss
+    and its metrics."""
+    import cloudpickle
+
+    from ray_tpu_torch.rllib.agents.ppo import PPOPolicy
+    from ray_tpu_torch.rllib.evaluation.rollout_worker import RolloutWorker
+    from ray_tpu_torch.rllib.policy.torch_policy import tree_leaves
+    from ray_tpu_torch.rlbench import PPO_BENCH_CONFIG
+
+    cfg = {**PPO_BENCH_CONFIG, "device": "cpu", "rollout_fragment_length": 256}
+    worker = RolloutWorker("CartPole-v1", cloudpickle.dumps(PPOPolicy), cfg)
+    try:
+        batch = worker.sample()
+    finally:
+        worker.stop()
+    env = worker.envs[0]
+    cpu = PPOPolicy(env.observation_space, env.action_space, cfg)
+    card = PPOPolicy(env.observation_space, env.action_space,
+                     {**cfg, "device": "cuda"})
+    before = cpu.get_weights()
+    card.set_weights(before)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        (want_g, _), (got_g, _) = (p.compute_gradients(batch)
+                                   for p in (cpu, card))
+        want_info = cpu.learn_on_batch(batch)
+        got_info = card.learn_on_batch(batch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    grad_errs = [_rel_l2(torch.tensor(g), torch.tensor(w)) for g, w in
+                 zip(tree_leaves(got_g), tree_leaves(want_g), strict=True)]
+    w0, want, got = (_rl_flat(w) for w in (before, cpu.get_weights(),
+                                            card.get_weights()))
+    weights_err = _rel_l2(got, want)
+    update_err = _rel_l2(got - w0, want - w0)
+    # the loss and each of its terms, against the loss's size: PPO's
+    # policy term is about 0 at its first step (the ratio is 1 and the
+    # advantages are normalised), so its own relative error means nothing
+    scale = abs(want_info["total_loss"])
+    info_err = max(abs(got_info[k] - v) / scale for k, v in want_info.items())
+    return {"rows": batch.count, "grad_rel_l2_by_leaf": grad_errs,
+            "weights_rel_l2": weights_err, "update_rel_l2": update_err,
+            "info_rel_err": info_err, "info_card": got_info,
+            "info_cpu": want_info, "tol": RL_STEP_TOL,
+            "policy_device": str(card.device)}, (
+        max(grad_errs) <= RL_STEP_TOL and weights_err <= RL_STEP_TOL
+        and update_err <= RL_STEP_TOL and info_err <= RL_STEP_TOL
+        and card.device.type == "cuda")
+
+
+def _rl_actors(trainer):
+    """Each rollout actor: no card seen, its policy on the CPU."""
+    import ray_tpu_torch
+
+    who = ray_tpu_torch.get([w.apply.remote(_rl_whoami)
+                             for w in trainer.workers.remote_workers],
+                            timeout=120)
+    ok = (len(who) == trainer.config["num_workers"]
+          and len({w["pid"] for w in who} | {os.getpid()}) == len(who) + 1
+          and all(w["cuda_visible_devices"] == "" and not w["cuda_available"]
+                  and w["policy_device"] == "cpu" for w in who))
+    return who, ok
+
+
+def _rl_ppo(trainer, base_mem):
+    """PPO at rlbench's configuration, the learner on the card: 8
+    train()s, the rates over the 7 after the first (rlbench.measure); the
+    actors' weights against the learner's after the last broadcast."""
+    import ray_tpu_torch
+    from ray_tpu_torch.rlbench import measure
+
+    t0 = time.perf_counter()
+    first = trainer.train()  # the learner's first launches
+    first_s = time.perf_counter() - t0
+    window, rows = measure(trainer, trains=RL_PPO_TRAINS - 1)
+    rewards = [m["episode_reward_mean"] for m in [first] + rows]
+    learner = trainer.get_policy()
+    want = _rl_flat(learner.get_weights())
+    synced = all(torch.equal(_rl_flat(w), want) for w in ray_tpu_torch.get(
+        [w.get_weights.remote() for w in trainer.workers.remote_workers],
+        timeout=120))
+    who, actors_ok = _rl_actors(trainer)
+    fields = {
+        "reward_means": rewards, "first_train_s": first_s,
+        "env_steps_per_s_first": first["num_env_steps_trained"] / first_s,
+        **window,
+        "learner_device": str(learner.device),
+        "learner_memory_allocated": torch.cuda.memory_allocated() - base_mem,
+        "actors": who, "actors_synced": synced}
+    ok = (rewards[-1] > RL_BAR and synced and actors_ok
+          and learner.device.type == "cuda")
+    return fields, ok
+
+
+def _rl_impala(trainer, base_mem):
+    """IMPALA at rlbench's configuration, the LearnerThread on the card:
+    RL_IMPALA_STEPS train()s, the best episode_reward_mean among them
+    past RL_BAR; the rates over the calls after the first
+    (rlbench.measure)."""
+    from ray_tpu_torch.rlbench import measure
+
+    first = trainer.train()  # the actors' first fragments, first launches
+    window, rows = measure(trainer, trains=RL_IMPALA_STEPS - 1)
+    rewards = [m["episode_reward_mean"] for m in [first] + rows]
+    best = max((r for r in rewards if r == r), default=0.0)
+    who, actors_ok = _rl_actors(trainer)
+    device = trainer.get_policy().device
+    fields = {
+        "reward_means": rewards, "best": best, **window,
+        "env_steps_sampled": trainer._sampled,
+        "env_steps_trained": trainer._learner.num_steps_trained,
+        "learner_device": str(device),
+        "learner_memory_allocated": torch.cuda.memory_allocated() - base_mem,
+        "actors": who}
+    return fields, best > RL_BAR and actors_ok and device.type == "cuda"
+
+
+def phase_rllib(dev, smi):
+    """RLlib's on-policy path (needs the runtime): the learner's step on
+    the card against the CPU's, then PPO and IMPALA at rlbench's
+    configuration through their trainers, the learner on the card and
+    two CPU rollout actors each."""
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    from ray_tpu_torch.rllib.agents.impala import ImpalaTrainer
+    from ray_tpu_torch.rllib.agents.ppo import PPOTrainer
+    from ray_tpu_torch.rlbench import IMPALA_BENCH_CONFIG, PPO_BENCH_CONFIG
+
+    fields = {"nvidia_smi": smi, "ppo_config": PPO_BENCH_CONFIG,
+              "impala_config": IMPALA_BENCH_CONFIG}
+    with contextlib.ExitStack() as trainers:
+        # both trainers first: their four actors start at once (IMPALA's
+        # each sample one fragment, then wait for its train())
+        t0 = time.perf_counter()
+        ppo = PPOTrainer(config={**PPO_BENCH_CONFIG, "device": "cuda"})
+        trainers.callback(ppo.cleanup)
+        impala = ImpalaTrainer(config={**IMPALA_BENCH_CONFIG,
+                                       "device": "cuda"})
+        trainers.callback(impala.cleanup)
+        fields["trainers_s"] = time.perf_counter() - t0
+        fields["step"], step_ok = _rl_step_check()
+        fields["ppo"], ppo_ok = _rl_ppo(ppo, base_mem)
+        fields["impala"], impala_ok = _rl_impala(impala, base_mem)
+    fields["learner_peak_memory"] = (torch.cuda.max_memory_allocated()
+                                     - base_mem)
+    fields["kernel_launches"] = local_counts()  # the RL path has none
+    emit("rllib", **fields)
+    if not (step_ok and ppo_ok and impala_ok):
+        raise RuntimeError(f"rllib: step {step_ok}, ppo {ppo_ok}, impala "
+                           f"{impala_ok}: {fields}")
+
+
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "bn_bwd_sums": ("ray_tpu_torch/ops/csrc/bn_bwd_sums.cu",
                     "ray_tpu/ops/batchnorm.py:43"),
@@ -4311,8 +4510,8 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
 # the phases that need the runtime (phase_runtime starts it)
 RUNTIME_PHASES = ("runtime", "collectives_procs", "train", "train_ingest",
                   "train_gpt2", "train_vit", "train_bert", "parallel",
-                  "train_moe", "serve", "train_gpt2_dp", "train_gpt2_mesh",
-                  "train_gpt2_elastic")
+                  "train_moe", "serve", "rllib", "train_gpt2_dp",
+                  "train_gpt2_mesh", "train_gpt2_elastic")
 
 
 def main():
@@ -4392,6 +4591,8 @@ def main():
             timed("release_par_ranks", release_par_ranks)
         if run("serve"):
             timed("serve", phase_serve, dev)
+        if run("rllib"):
+            timed("rllib", phase_rllib, dev, smi)
         if run("train_gpt2_dp"):
             add_launches(timed("train_gpt2_dp", phase_train_gpt2_dp, dev))
         if run("train_gpt2_mesh"):

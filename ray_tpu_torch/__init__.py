@@ -24,6 +24,10 @@ and data-parallel (optionally int8-quantized or ZeRO-sharded) training
 over the ranks of a `collective` group, whose allreduce, reduce-scatter
 and allgather are the fused ring kernels of
 `collective.backends.pallas_backend`.
+
+`rllib` holds RLlib's on-policy path (PG, PPO, A3C, IMPALA): a
+`TorchPolicy` learner on the card fed by CPU rollout actors of the
+runtime; `python -m ray_tpu_torch.rlbench` measures its env-steps/s.
 """
 
 __version__ = "0.1.0"
